@@ -7,7 +7,7 @@ dynamics plus process noise, observed through a linear(-or-identity) Gaussian
 or Poisson emission — returning (hidden, obs) splits with the true latents
 kept for evaluation plots and R².
 
-TPU-first shape: the whole simulator is one `lax.scan` over T vmapped over
+Shape: the whole simulator is one `lax.scan` over T vmapped over
 trajectories, jitted once; datasets at reference scales (hundreds of
 trajectories, T≈100–200) generate in milliseconds on-device, so there is no
 separate host data-loading subsystem to port.

@@ -11,8 +11,8 @@ these kernels, which consume them.
 
 All functions broadcast over arbitrary leading axes (batch, particle, time)
 and keep the event axis last. Computation is float32: log-densities need the
-mantissa; the MLP matmuls that *produce* the parameters are where bf16/MXU
-throughput lives (see `psvo_tpu.ops.pallas_step` / `pallas_trunk`).
+mantissa; the MLP matmuls that *produce* the parameters are where bf16
+throughput lives (`TrainConfig.bf16_matmuls`).
 """
 
 from __future__ import annotations
@@ -47,8 +47,7 @@ def mvn_diag_sample(key: jax.Array, mean: jax.Array, scale: jax.Array) -> jax.Ar
 # REDUCED log-density keeps it a finite, astronomically-negative number (the
 # offending particle simply never wins, its gradient is cut, training can
 # recover). The floor is applied after the event-axis reduction on purpose:
-# clipping z per-element instead broke XLA's fusion of the density chain and
-# cost 57 ms/step at K=1024 (97.7 vs 41.0 ms, measured on v5e).
+# clipping z per-element instead broke XLA's fusion of the density chain.
 _MIN_LOGP = -1e30
 
 
@@ -62,10 +61,8 @@ def mvn_diag_log_prob(x: jax.Array, mean: jax.Array, scale: jax.Array) -> jax.Ar
 def mvn_diag_log_prob_cm(x: jax.Array, mean: jax.Array, scale: jax.Array) -> jax.Array:
     """`mvn_diag_log_prob` in channel-major layout: event axis at -2.
 
-    The forward filter stores particles as [B, D, K] so the K axis rides the
-    128-lane dimension and tiny D pads only to the 8-sublane width (the
-    [B, K, D] layout padded D to 128 lanes — up to 64× wasted HBM bytes on
-    every particle tensor; measured as the B=32→128 throughput regression).
+    The forward filter stores particles as [B, D, K] so the wide K axis is
+    the minor axis and the tiny D is reduced across rows.
     """
     z = (x - mean) / scale
     logp = jnp.sum(-0.5 * z * z - jnp.log(scale) - _HALF_LOG_2PI, axis=-2)
@@ -122,7 +119,7 @@ def mvn_full_log_prob_cm(x: jax.Array, mean: jax.Array, chol: jax.Array) -> jax.
 
     x/mean [..., D, K] with a CONSTANT [D, D] Cholesky factor (the
     cov_type="tril" heads are state-independent): one triangular solve
-    against the [D, K] matrix per batch row — K rides the lane axis for free.
+    against the [D, K] matrix per batch row.
     """
     d = chol.shape[-1]
     diff = x - mean
@@ -142,7 +139,7 @@ def mvn_tril_log_prob_cm(
     x/mean/diag [..., D, K]; off [..., D(D-1)/2, K] row-major strict-lower
     entries (jnp.tril_indices(k=-1) order). The forward substitution
     L z = (x - mean) unrolls over the tiny latent dim (D(D-1)/2 fused
-    multiply-adds on [..., K] lanes) — a [..., D, D, K] chol tensor or a
+    multiply-adds on [..., K] rows) — a [..., D, D, K] chol tensor or a
     per-particle solve_triangular would materialize/batch K tiny systems.
     """
     d = x.shape[-2]

@@ -20,7 +20,7 @@ SURVEY.md §3.2). Reference capability coverage beyond the MLP+diag default:
   TRUE dynamics stepper with a learned noise scale — the learn-proposals-only
   ablation (models/dynamics.py role 2).
 
-TPU-first shape: `SSM` is a *static* description (dims, net configs, flags) —
+Shape: `SSM` is a *static* description (dims, net configs, flags) —
 hashable, safe to close over in jit — while all learnable state lives in one
 params dict pytree `{"q0","q1","q2","f","g","qb","prior"}`. Every method is a
 pure function `(params, arrays) -> arrays`. The `_cm` variants operate on the
@@ -62,8 +62,6 @@ class SSM:
         # summarizes y_{t:T} into h_t; q_b conditions on [x_{t+1}, y_t, h_t].
         self.qb_rnn = cfg.smc.qb_rnn
         self.nets = {k: v for k, v in cfg.nets}
-        self.use_pallas_resample = cfg.use_pallas and cfg.use_pallas_resample
-        self.use_pallas_step = cfg.use_pallas and cfg.use_pallas_step
         self.bf16_matmuls = cfg.train.bf16_matmuls
 
         self.transition_known = cfg.smc.transition == "known"
@@ -147,16 +145,9 @@ class SSM:
         params["qb"] = head(keys[5], self.nets["qb"], qb_in, dx)
         return params
 
-    # -- net application (routes to fused Pallas kernel when enabled) --------
+    # -- net application --------------------------------------------------
 
     def _mean_scale(self, net: Params, cfg: NetConfig, x: jax.Array):
-        # NOTE: a standalone fused-MLP Pallas kernel used to dispatch here
-        # (use_pallas_mlp); it measured SLOWER than XLA's own fusion for
-        # every config in the suite across two rounds (45→147 ms class —
-        # per-call overhead beats HBM savings at these net sizes) and was
-        # retired in round 5 (docs/ROADMAP.md dead-end list; git history
-        # keeps the kernel). The fused compute paths that DO win live in
-        # ops/pallas_step.py (whole-step) and ops/pallas_trunk.py.
         return networks.mlp_mean_scale(
             net,
             x,
@@ -247,7 +238,7 @@ class SSM:
         """h_t = GRU(h_{t+1}, y_t) run BACKWARD over the observations:
         h_t summarizes y_{t:T}. ys_tm [T, B, Dy] -> [T, B, H].
 
-        TPU shape note: the recurrence is a [B, ·]-sized reverse lax.scan —
+        Shape note: the recurrence is a [B, ·]-sized reverse lax.scan —
         K- and M-independent, so its cost is negligible next to the
         particle math; the per-(M-path) work stays in the bulk MLP heads.
         """
@@ -398,8 +389,8 @@ class SSM:
 
         q1 and f consume the SAME input, so when their architectures match
         (the default) they evaluate as ONE stacked vmapped MLP — XLA emits a
-        single batched matmul chain, halving per-step MLP op count (the scan
-        is latency-bound on TPU, so op count ≈ time). Also returns the
+        single batched matmul chain, halving the per-step MLP op count inside
+        the sequential scan. Also returns the
         transition parameters so the incremental weight α_t never re-runs the
         f network. The encoder head q2 runs feature-last on the [B, E]
         observation (one row per trajectory — no K broadcast materializes)

@@ -7,11 +7,9 @@ trainable state-independent diagonal or a second head (SURVEY.md §2-A,
 
 Here a network is a dict pytree (`{"layers": [(W, b), ...], "mean": (W, b),
 "raw_scale": ...}`) plus pure apply functions — no framework module system, so
-the same pytree feeds (a) the jnp path, (b) the fused Pallas kernels
-(via `pallas_step.prepare`'s augmented-weight packing), and (c) optax,
-without adapters. All leading axes
-broadcast: apply flattens [..., Din] -> [N, Din] around the matmul chain so
-batch*particle rows tile the MXU.
+the same pytree feeds the apply functions and optax without adapters. All
+leading axes broadcast: apply flattens [..., Din] -> [N, Din] around the
+matmul chain so batch*particle rows form one large matmul.
 """
 
 from __future__ import annotations
@@ -151,7 +149,7 @@ def tril_from_raw(raw_tril: dict, sigma_min: float) -> jax.Array:
 
 def _dense(h: jax.Array, w: jax.Array, b: jax.Array, bf16: bool) -> jax.Array:
     """One dense layer; bf16=True runs the matmul in bfloat16 operands with
-    float32 accumulation (MXU-native) — activations/bias stay f32 so the
+    float32 accumulation — activations/bias stay f32 so the
     log-density numerics downstream keep their mantissa."""
     if bf16:
         out = jax.lax.dot_general(
@@ -190,11 +188,7 @@ def mlp_mean_scale(
     sigma_min: float = 1e-3,
     bf16: bool = False,
 ) -> tuple[jax.Array, jax.Array]:
-    """Return (mean, scale) with the scale floored at sigma_min.
-
-    This is the jnp reference path the fused kernels are equivalence-tested
-    against (tests/test_pallas_step.py, tests/test_pallas_trunk.py).
-    """
+    """Return (mean, scale) with the scale floored at sigma_min."""
     h = mlp_features(params, x, activation, bf16)
     w, b = params["mean"]
     mean = _dense(h, w, b, bf16)
@@ -239,13 +233,13 @@ def mlp_mean_tril(
 
 
 # ---------------------------------------------------------------------------
-# Channel-major apply: features on axis -2, particles on the last (lane) axis.
+# Channel-major apply: features on axis -2, particles on the last axis.
 #
 # The forward filter keeps particle tensors as [B, D, K] (see
 # distributions.mvn_diag_log_prob_cm for the layout rationale), so the dense
 # chain contracts the -2 axis: out[..., e, k] = Σ_d w[d, e] · h[..., d, k].
-# Per batch row this is exactly the MXU-native [E, D] × [D, K] product with K
-# on lanes — no lane padding of the tiny feature dim anywhere in the chain.
+# Per batch row this is the [E, D] × [D, K] product with K as the wide
+# dimension; the tiny feature dim is never the minor axis of the chain.
 # ---------------------------------------------------------------------------
 
 

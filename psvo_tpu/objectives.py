@@ -58,7 +58,6 @@ from psvo_tpu.distributions import (
     mvn_diag_log_prob,
 )
 from psvo_tpu.models.ssm import SSM
-from psvo_tpu.ops import pallas_ffbsi
 from psvo_tpu.smc import FilterResult, forward_filter
 
 
@@ -144,16 +143,16 @@ def _pairwise_query_logp(ssm: SSM, sup: dict, x_query: jax.Array) -> jax.Array:
     """Query-side contractions of the pairwise density: sup (one step's
     support terms, [B, ..., K]) × x_query [B, M, Dx] -> [B, M, K].
 
-    With r = 1/s², the squared Mahalanobis term expands into MXU
+    With r = 1/s², the squared Mahalanobis term expands into matmul
     contractions over d instead of a broadcast [B,M,K,D] tensor:
 
         Σ_d (q_d − m_dj)²·r_dj = Σ_d q_d²·r_dj − 2·Σ_d q_d·(m·r)_dj + Σ_d m²r
 
     (the last term rides sup["c"]). HIGHEST precision: t1/t2/c are large
     near-cancelling quantities (~x²/σ², 1e3-1e4 at Lorenz-63 state scales);
-    the TPU default truncates f32 operands to bf16 (~0.4% rel), which after
-    the cancellation would leave O(1-100 nat) noise in the backward
-    categorical logits. These contractions are tiny next to the MLP cost."""
+    a reduced-precision default (bf16 or TF32 operands) would leave
+    O(1-100 nat) noise in the backward categorical logits after the
+    cancellation. These contractions are tiny next to the MLP cost."""
     hi = jax.lax.Precision.HIGHEST
     if ssm.f_tril_head:
         qq = (x_query[..., :, None] * x_query[..., None, :]).reshape(
@@ -187,11 +186,10 @@ def _pairwise_transition_logp(
 
     The O(K·M·D) inner loop of FFBSi (SURVEY.md §3.3 "THE hot spot of PSVO").
     One batched MLP forward over the K support points gives (m, s) [B,Dx,K];
-    the Mahalanobis term then rides three MXU contractions (see
-    _pairwise_query_logp) — round-1 ROADMAP #4 ("fused pairwise density
-    kernel") realized as plain dot_generals riding the MXU; no Pallas
-    needed. Split as support-terms + query-contractions so the FFBSi scan
-    bulk-precomputes the support side (_pairwise_support_terms).
+    the Mahalanobis term then rides three dot_general contractions (see
+    _pairwise_query_logp). Split as support-terms + query-contractions so
+    the FFBSi scan bulk-precomputes the support side
+    (_pairwise_support_terms).
     """
     return _pairwise_query_logp(
         ssm, _pairwise_support_terms(ssm, params, x_support, u), x_query
@@ -268,25 +266,6 @@ def _svo_backward(ssm: SSM, params, key, ys_tm, ctrl_tm, fwd: FilterResult, m: i
     logp = log_g_t
     logq = log_rho_t
 
-    # Fused whole-sweep kernel (ops/pallas_svo.py): the per-step q_b/f/g
-    # MLPs were the last per-step-MLP scan in the system — measured 37% of
-    # the SVO step at M=16, growing with M (v5e 2026-08-20). The kernel's
-    # cost is flat in M (128-lane pad), so it serves M ≥ pallas_svo.MIN_M
-    # (measured crossover; −19% at M=64) and this scan body keeps the
-    # smaller-M presets. Same contract either way: identical ε stream,
-    # identical per-term density floors; anchor terms above and the prior
-    # below stay outside.
-    from psvo_tpu.ops import pallas_svo
-
-    if pallas_svo.usable(ssm, batch, m):
-        x_first, lp_sweep, lq_sweep, xs_rev = pallas_svo.run_svo_sweep(
-            ssm, params, ys_tm, ctrl_tm, eps_scan, x_tilde_t, m
-        )
-        logp = logp + lp_sweep + ssm.prior_log_prob(params, x_first)
-        logq = logq + lq_sweep
-        x_tilde = jnp.concatenate([xs_rev, x_tilde_t[None]], axis=0)
-        return logp - logq, x_tilde
-
     # RNN option (smc.qb_rnn): backward-GRU summaries h_t of y_{t:T},
     # computed for ALL t in one cheap [B, ·] reverse scan outside the
     # M-path math; zero-width placeholder keeps the scan structure static
@@ -332,8 +311,8 @@ def _make_ffbsi_body(ssm: SSM, params):
 
     The body only SELECTS: the path log-joint is recomputed after the sweep
     on the selected trajectories (`_selected_path_log_joint`), so the in-body
-    logp accumulator (kept for carry-shape compatibility with the fused
-    kernel) is discarded by the callers and the log_g stream is zeros. The
+    logp accumulator (kept for carry-shape compatibility with the sharded
+    sweep) is discarded by the callers and the log_g stream is zeros. The
     pairwise density's support-side terms (transition trunk included) are
     bulk-hoisted (`_pairwise_support_terms`), so the reverse scan body runs
     NO MLPs — only the two query contractions, the categorical draw, and
@@ -348,8 +327,8 @@ def _make_ffbsi_body(ssm: SSM, params):
         pair = _pairwise_query_logp(ssm, sup_t, x_next)
         logits = pair + logw_norm[:, None, :]  # [B, M, K] backward weights
         # categorical draw as Gumbel-argmax over PRE-GENERATED noise (bulk
-        # RNG outside the scan; also what lets the Pallas whole-scan kernel
-        # reproduce the jnp path bit-exactly)
+        # RNG outside the scan; also what lets the particle-sharded sweep
+        # reproduce this path bit-exactly)
         idx = jnp.argmax(logits + gum_t, axis=-1)  # [B, M]
         idx3 = idx[..., None]
         pair_sel = jnp.take_along_axis(pair, idx3, axis=-1)[..., 0]  # log f
@@ -369,13 +348,9 @@ def _make_ffbsi_body(ssm: SSM, params):
 def _selected_path_log_joint(ssm: SSM, params, x_tilde_c, ys_tm, ctrl_tm):
     """log p_θ(x̃, y) [B, M], evaluated directly on the selected trajectories.
 
-    `x_tilde_c` arrives COMPACT [T, B, M·Dx] (round-5 long-T fix: the
-    natural [T, B, M, Dx] layout puts (M, Dx) on the (sublane, lane) tile
-    and Dx=3 pads 42.7× — the T=8193 OOM dump showed two such 512 MB
-    buffers, the smoothed paths and their summed cotangent; the compact
-    form pads 48→128 lanes instead). Callers invoke this through
-    jax.checkpoint so the padded MLP row/hidden activations are
-    recomputed in the backward rather than persisting O(T·B·M·128) f32.
+    `x_tilde_c` arrives COMPACT [T, B, M·Dx]. Callers invoke this through
+    jax.checkpoint so the MLP row/hidden activations are recomputed in the
+    backward rather than persisting O(T·B·M·hidden) f32.
 
     Mathematically identical — value AND gradient — to gathering the selected
     entries of full-support density evaluations: the selected particle IS the
@@ -384,8 +359,7 @@ def _selected_path_log_joint(ssm: SSM, params, x_tilde_c, ys_tm, ctrl_tm):
     gather commute. But this form costs O(T·B·M) trunk rows instead of
     O(T·B·K): at the BASELINE PSVO config (K=1024, M=16) that is 64× less
     work, and it removes the K-wide trunk *backward* from the train step
-    entirely (the two bulk-support VJPs measured 2×15.5 ms of the 55.9 ms
-    round-3 PSVO step on v5e before this split)."""
+    entirely."""
     t_steps, b, md = x_tilde_c.shape
     m = md // ssm.dx
     if t_steps - 1 >= 2 * _LOGJOINT_CHUNK and (t_steps - 1) % _LOGJOINT_CHUNK == 0:
@@ -405,13 +379,11 @@ def _selected_path_log_joint(ssm: SSM, params, x_tilde_c, ys_tm, ctrl_tm):
     )
 
 
-# Time-chunk length of the long-T log-joint scan. At T=16385 the direct
-# form's [T, B, M, Dx=3] tensors (the reshape, its remat copy, and the
-# summed cotangent) each tile-pad 42.7× — three ~1 GB allocations in the
-# OOM dump — because Dx rides the lane axis. The chunked form bounds every
-# padded tensor to L steps (≈31 MB at L=512): a lax.scan over time chunks
-# whose checkpointed body re-derives its padded forms in the backward, with
-# the previous chunk's boundary frame carried for the transition pairs.
+# Time-chunk length of the long-T log-joint scan. The chunked form bounds
+# every [*, B, M, ·] intermediate (the MLP activations, their remat copies
+# and the summed cotangent) to L steps: a lax.scan over time chunks whose
+# checkpointed body re-derives them in the backward, with the previous
+# chunk's boundary frame carried for the transition pairs.
 # Engaged only when (T−1) is a multiple of the chunk with ≥ 2 chunks —
 # reference-scale T (~100) keeps the direct form; long-T runs use
 # T = 2^k + 1 which always divides.
@@ -422,7 +394,7 @@ def _logjoint_chunked(ssm: SSM, params, x_c, ys_tm, ctrl_tm, m: int):
     """Chunked evaluation of the selected-path log-joint — value- and
     gradient-identical to the direct form (test:
     test_logjoint_chunked_matches_direct), O(L) instead of O(T) peak for
-    the lane-padded [*, B, M, Dx] intermediates."""
+    the [*, B, M, ·] intermediates."""
     t_steps, b, _ = x_c.shape
     dx = ssm.dx
     L = _LOGJOINT_CHUNK
@@ -498,10 +470,9 @@ def _ffbsi_backward(
         sup_all = jax.tree_util.tree_map(jax.lax.stop_gradient, sup_all)
         logw_norm_all = jax.lax.stop_gradient(logw_norm_all)
     # the emission stream is dead weight now that logp is recomputed
-    # post-sweep — feed zeros (the sweep bodies/kernels keep their shape)
+    # post-sweep — feed zeros (the sweep bodies keep their shape)
     log_g_support = jnp.zeros(logw_norm_all.shape, logw_norm_all.dtype)
 
-    k = fwd.logw_last.shape[-1]
     mesh = _particle_mesh()
     if mesh is not None:
         # particle-sharded sweep: shard_map island (global Gumbel-argmax +
@@ -515,17 +486,9 @@ def _ffbsi_backward(
             fwd.xs[:-1], sup_all, logw_norm_all, log_g_support, gum,
             x_tilde_t, logp0, logq,
         )
-    elif ssm.use_pallas_step and pallas_ffbsi.usable(ssm, k, ys_tm.shape[1], m):
-        # whole-sweep Pallas kernel (one launch per direction); consumes the
-        # SAME bulk streams + Gumbel noise as the lax.scan path below
-        x_first, _, lq_acc, xs_rev = pallas_ffbsi.run_ffbsi_scan(
-            ssm, sup_all, fwd.xs[:-1], logw_norm_all, log_g_support, gum,
-            x_tilde_t, ssm.dx,
-        )
-        logq = logq + lq_acc
     else:
         (x_first, _, logq), xs_rev = jax.lax.scan(
-            _compact_body(_make_ffbsi_body(ssm, params)),
+            _make_ffbsi_body(ssm, params),
             (x_tilde_t, logp0, logq),
             (fwd.xs[:-1], sup_all, logw_norm_all, log_g_support, gum),
             reverse=True,
@@ -535,31 +498,15 @@ def _ffbsi_backward(
     )
 
 
-def _compact_body(body):
-    """Wrap an FFBSi sweep body so the scan stacks COMPACT [B, M·Dx] path
-    selections (round-5 long-T fix: stacking [B, M, Dx] puts Dx=3 on the
-    lane axis — 42.7× tile padding on a [T, B, M, Dx] buffer that lives
-    from sweep to log-joint)."""
-
-    def body_c(carry, inputs):
-        carry2, x_t = body(carry, inputs)
-        return carry2, x_t.reshape(x_t.shape[0], -1)
-
-    return body_c
-
-
 def _stitch_and_logjoint(ssm, params, pieces, x_tilde_t, ys_tm, ctrl_tm, logq):
-    """Concatenate smoothed pieces (compact [L, B, M·Dx] or [L, B, M, Dx] —
-    kernel/sharded sweeps emit the latter) with the anchor, evaluate the
-    path log-joint through jax.checkpoint on the compact layout, and return
+    """Concatenate smoothed pieces ([L, B, M, Dx]) with the anchor, evaluate
+    the path log-joint through jax.checkpoint on the compact [T, B, M·Dx]
+    layout, and return
     (x_tilde [T, B, M, Dx], logp, logq). The full-layout return exists for
     ObjectiveOutput.smoothed (plots/eval); inside a train step it is dead
     code and XLA drops it."""
     b, m = x_tilde_t.shape[0], x_tilde_t.shape[1]
-    flat = [
-        p if p.ndim == 3 else p.reshape(p.shape[0], p.shape[1], -1)
-        for p in pieces
-    ]
+    flat = [p.reshape(p.shape[0], p.shape[1], -1) for p in pieces]
     x_tilde_c = jnp.concatenate(
         [*flat, x_tilde_t.reshape(1, b, -1)], axis=0
     )
@@ -620,12 +567,11 @@ def _ffbsi_backward_segmented(
     carry = (x_tilde_t, logp, logq)
     pieces = []  # smoothed segments, collected in reverse time order
     for s in reversed(range(n_segments)):
-        # schedule fence (round-5 long-T fix): the segment recomputes and
-        # the per-segment Gumbel rng-bit-generators have no data dependence
-        # on the sweep carry, so XLA front-loads ALL segments' buffers —
-        # the T=8193 OOM dump showed 3× coexisting [L, B, M, K] 512 MB
-        # Gumbel tensors. Fencing each segment's inputs behind the carry
-        # serializes the loop to ~one segment's working set.
+        # schedule fence: the segment recomputes and the per-segment Gumbel
+        # rng-bit-generators have no data dependence on the sweep carry, so
+        # XLA may front-load ALL segments' [L, B, M, K] buffers at once.
+        # Fencing each segment's inputs behind the carry serializes the
+        # loop to ~one segment's working set.
         seg_x_d, seg_logw_d, keys_d, _ = jax.lax.optimization_barrier(
             (cache.seg_x, cache.seg_logw, cat_keys, carry[2])
         )
@@ -643,6 +589,8 @@ def _ffbsi_backward_segmented(
         lo = 1 + s * seg_len
         hi = min(s * seg_len + seg_len, t_steps - 2)
         n_sup = hi - lo + 1
+        if n_sup == 0:  # seg_len 1: the last segment holds only the anchor
+            continue
         xs_sup, logw_sup = xs_seg[:n_sup], logws_seg[:n_sup]
         ys_sup = ys_tm[lo : hi + 1]
         ctrl_sup = ctrl_tm[lo + 1 : hi + 2]
@@ -662,27 +610,12 @@ def _ffbsi_backward_segmented(
                 x_q, logp_c, logq_c,
             )
             carry = (x_first_seg, logp_c, logq_c)
-        elif ssm.use_pallas_step and pallas_ffbsi.usable(
-            ssm, xs_sup.shape[-1], batch, m
-        ):
-            # fused sweep per segment: the previous carry is this segment's
-            # anchor/query; the in-sweep logp/logq terms add to the carried
-            # accumulators (plain sums)
-            x_q, logp_c, logq_c = carry
-            x_first_seg, lp_seg, lq_seg, xs_rev = pallas_ffbsi.run_ffbsi_scan(
-                ssm, sup_sup, xs_sup, lwn_sup, lg_sup, gum_sup, x_q, ssm.dx
-            )
-            carry = (x_first_seg, logp_c + lp_seg, logq_c + lq_seg)
         else:
             carry, xs_rev = jax.lax.scan(
-                _compact_body(body), carry,
+                body, carry,
                 (xs_sup, sup_sup, lwn_sup, lg_sup, gum_sup),
                 reverse=True,
             )
-        # kernel/sharded sweeps emit [L, B, M, Dx]; compact immediately so
-        # the collected pieces never persist in the 42.7×-padded layout
-        if xs_rev.ndim == 4:
-            xs_rev = xs_rev.reshape(xs_rev.shape[0], xs_rev.shape[1], -1)
         pieces.append(xs_rev)
 
     # final reverse step: support t = 0 (the initial particles)
@@ -710,7 +643,11 @@ def _ffbsi_backward_segmented(
 
 
 def make_objective(ssm: SSM, cfg: Config):
-    """Return objective_fn(params, key, ys, encoder_inputs=None) -> ObjectiveOutput."""
+    """Return objective_fn(params, key, ys, encoder_inputs=None, controls=None,
+    noise=None) -> ObjectiveOutput.
+
+    noise is forward_filter's testing hook (fixed proposal and resampling
+    draws for the forward pass; unsegmented objectives only)."""
     smc_cfg = cfg.smc
     if smc_cfg.objective == "iwae":
         smc_cfg = dataclasses.replace(smc_cfg, resampling="none")
@@ -731,7 +668,7 @@ def make_objective(ssm: SSM, cfg: Config):
     m = smc_cfg.n_smoothing_particles
 
     def objective(
-        params, key, ys, encoder_inputs=None, controls=None
+        params, key, ys, encoder_inputs=None, controls=None, noise=None
     ) -> ObjectiveOutput:
         # q_uses_true_X debug flag (SURVEY.md §5 flag table): the caller passes
         # the true latents as encoder_inputs; here we only assert intent.
@@ -741,6 +678,8 @@ def make_objective(ssm: SSM, cfg: Config):
         if segmented:
             from psvo_tpu.smc import forward_filter_segmented
 
+            if noise is not None:
+                raise ValueError("noise= is not supported with ffbsi_segments > 1")
             fwd, seg_cache = forward_filter_segmented(
                 ssm,
                 params,
@@ -761,6 +700,7 @@ def make_objective(ssm: SSM, cfg: Config):
                 cache=needs_cache,
                 encoder_inputs=encoder_inputs,
                 controls=controls,
+                noise=noise,
             )
         metrics = {
             "log_z_fwd": jnp.mean(fwd.log_z),

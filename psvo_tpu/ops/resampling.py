@@ -5,7 +5,7 @@ Covers the reference's ancestor-sampling step (`SMC/SMC_base.py`'s
 `tf.categorical`-style multinomial; BASELINE.json also pins systematic
 resampling in the family).
 
-TPU-first design: both schemes reduce to inverse-CDF lookup —
+Design: both schemes reduce to inverse-CDF lookup —
 cumulative-sum the normalized weights, then for K quantile positions u_i find
 `a_i = #{j : C_j <= u_i}` and gather. The two schemes differ ONLY in the
 positions:
@@ -15,14 +15,10 @@ positions:
                                        multinomial sampling)
 
 The lookup stays on-device inside the jitted scan — no host sync, static
-shapes. Two interchangeable backends, equivalence-tested in
-tests/test_resampling.py:
-
-  * jnp path (here): vmapped `jnp.searchsorted` — XLA lowers to a sort-based
-    merge which tiles well on TPU.
-  * Pallas kernel (`psvo_tpu.ops.pallas_resample`): branch-free tiled
-    compare-and-sum (`idx = sum(cumw <= u)` over VMEM tiles) fused with the
-    particle gather.
+shapes. Systematic positions take the O(K) histogram form
+(`systematic_indices_histogram`, one scatter-add and one cumsum);
+multinomial positions take a vmapped `jnp.searchsorted`. Both are checked
+against a NumPy inverse-CDF oracle in tests/test_resampling.py.
 
 Gradient policy: ancestor indices are integers — no gradient path exists
 through them; the FIVO estimator's stop-gradient treatment of resampling
@@ -54,15 +50,13 @@ def quantile_positions_from_raw(u_raw: jax.Array, k: int, method: str) -> jax.Ar
     """[..., K] inverse-CDF query positions in [0, 1), sorted along K.
 
     Broadcasts over leading axes, so ALL T steps' positions can be built in
-    one shot outside the time scan (see `bulk_positions`) — per-step position
-    math (a 1-D iota per iteration) measured ~1 ms/step on v5e, 4× the whole
-    multinomial path.
+    one shot outside the time scan (see `bulk_positions`).
     """
     if method == "systematic":
         return (jnp.arange(k, dtype=jnp.float32) + u_raw[..., None]) / k
     if method == "multinomial":
-        # sorting keeps the searchsorted output monotone, which both the
-        # sort-based jnp lowering and the Pallas kernel exploit.
+        # sorting keeps the searchsorted output monotone (ancestor indices
+        # come out sorted, like systematic ones).
         return jnp.sort(u_raw, axis=-1)
     raise ValueError(f"unknown resampling method {method!r}")
 
@@ -102,8 +96,6 @@ def systematic_indices_histogram(cumw: jax.Array, u0: jax.Array) -> jax.Array:
     a_i = #{j : C_j <= u_i} = #{j : ceil(K·C_j − u0) <= i}, so bucket each
     particle at v_j = ceil(K·C_j − u0) and prefix-sum the histogram — one
     scatter-add and one cumsum instead of a sort-merge over 2K elements.
-    The large-K path (the Pallas compare-and-count kernel is quadratic and
-    caps at K=2048).
 
     cumw [B, K] inclusive normalized CDF; u0 [B] in [0, 1).
     """
@@ -131,8 +123,9 @@ def resample_indices(
 def gather_particles(x: jax.Array, idx: jax.Array) -> jax.Array:
     """Gather along the particle (last) axis: x [B, D, K], idx [B, K] -> [B, D, K].
 
-    Channel-major layout: the K axis is last (lanes); the gather broadcasts
-    the [B, 1, K] index over the feature sublanes.
+    Channel-major layout: the K axis is last; the gather broadcasts the
+    [B, 1, K] index over the feature axis. Its VJP is the exact
+    scatter-add of the cotangent onto the chosen ancestors.
     """
     return jnp.take_along_axis(x, idx[:, None, :], axis=-1)
 
@@ -144,7 +137,6 @@ def maybe_resample(
     *,
     method: str = "systematic",
     ess_threshold: float = 1.0,
-    use_pallas: bool = False,
 ) -> tuple[jax.Array, jax.Array, jax.Array, jax.Array, jax.Array]:
     """ESS-adaptive resampling step for one scan iteration (channel-major x).
 
@@ -155,8 +147,7 @@ def maybe_resample(
     term when `use_stop_gradient=False`).
     Resampling happens per batch row where ESS/K < ess_threshold (the
     reference resamples unconditionally, i.e. threshold=1.0). Both branches
-    are computed and selected with `where` — static shapes, no `cond` — which
-    on TPU is cheaper than divergent control flow at these sizes.
+    are computed and selected with `where` — static shapes, no `cond`.
 
     Post-resampling weights reset to uniform in the *normalized* sense: the
     carried `logw_out` is 0 for resampled rows, and the incremental weight at
@@ -173,23 +164,14 @@ def maybe_resample(
     else:
         do = ess / k < ess_threshold  # [B] bool
 
-    if use_pallas:
-        from psvo_tpu.ops import pallas_resample
-
-        # Channel-major fused kernel (static-tile inverse-CDF + one-hot
-        # gather, D-tiled): VMEM-resident thanks to the [B, D, K] layout.
-        # K beyond the fused cap routes to the O(K) two-level indices
-        # kernel + gather inside resample_and_gather.
-        idx, x_res = pallas_resample.resample_and_gather(u, logw, x)
+    logw_norm, _ = log_normalize(logw, axis=-1)
+    cumw = jnp.cumsum(jnp.exp(logw_norm), axis=-1)
+    if method == "systematic":
+        # recover the shared offset from the first affine position
+        idx = systematic_indices_histogram(cumw, u[:, 0] * k)
     else:
-        logw_norm, _ = log_normalize(logw, axis=-1)
-        cumw = jnp.cumsum(jnp.exp(logw_norm), axis=-1)
-        if method == "systematic":
-            # recover the shared offset from the first affine position
-            idx = systematic_indices_histogram(cumw, u[:, 0] * k)
-        else:
-            idx = inverse_cdf_indices(cumw, u)
-        x_res = gather_particles(x, idx)
+        idx = inverse_cdf_indices(cumw, u)
+    x_res = gather_particles(x, idx)
     x_out = jnp.where(do[:, None, None], x_res, x)
     logw_out = jnp.where(do[:, None], jnp.zeros_like(logw), logw)
     return x_out, logw_out, do, ess, idx

@@ -4,7 +4,7 @@ Round-2 shipped smoothing objectives that *reject* particle meshes: under
 GSPMD the backward pass's `take_along_axis` ancestor gathers (and the anchor
 categorical) force an all-gather of the full [B, D, K] particle support every
 reverse step — exactly the pattern the forward resampling island
-(ops/sharded_resampling.py) exists to avoid (ADVICE r2 low #4). This module
+(ops/sharded_resampling.py) exists to avoid. This module
 closes that gap: the whole reverse sweep runs inside ONE `shard_map` island,
 so GSPMD never sees a data-dependent gather over the sharded axis.
 

@@ -1,7 +1,7 @@
 """Hierarchical sharded resampling over the particle mesh axis.
 
 SURVEY.md §7 hard-part 1 ("the novel engineering in the whole build"): when K
-shards over ICI, resampling needs a *global* view of the weights. Left to
+shards over the device mesh, resampling needs a *global* view of the weights. Left to
 GSPMD, the inverse-CDF gather forces an all-gather of the full [B, D, K]
 particle tensor every step (verified in the round-2 HLO dump:
 `f32[2,8,256] all-gather`), replicating both memory and gather compute on
@@ -16,10 +16,8 @@ gather:
    U locates its source shard by comparing against the P offsets;
 3. a ring of P−1 `ppermute` steps rotates (local CDF, particles) around the
    particle axis; at each step a shard-local inverse-CDF + gather picks the
-   slots whose source is the currently-held shard. The per-step local lookup
-   reuses the fused Pallas kernel (`ops.pallas_resample`) on TPU — per-shard
-   K is small, exactly where the kernel wins — with the jnp searchsorted path
-   as fallback (and on CPU test meshes).
+   slots whose source is the currently-held shard (a shard-local
+   searchsorted + gather).
 
 Equivalence with the single-device inverse-CDF is exact up to float-boundary
 ties (per-shard cumsum + offset vs one global cumsum), tested on the 8
@@ -50,7 +48,6 @@ def sharded_maybe_resample(
     *,
     method: str = "systematic",
     ess_threshold: float = 1.0,
-    use_pallas: bool = False,
 ):
     """ESS-adaptive resampling step under a ("data", "particle") mesh.
 
@@ -63,7 +60,7 @@ def sharded_maybe_resample(
     spec_w = P(pd, pp)
     spec_x = P(pd, None, pp)
     island = jax.shard_map(
-        partial(_island, ess_threshold=ess_threshold, use_pallas=use_pallas),
+        partial(_island, ess_threshold=ess_threshold),
         mesh=mesh,
         in_specs=(spec_w, spec_w, spec_x),
         out_specs=(spec_x, spec_w, P(pd), P(pd), spec_w),
@@ -72,7 +69,7 @@ def sharded_maybe_resample(
     return island(u, logw, x)
 
 
-def _local_lookup(rel, logw_r, x_r, s_r, use_pallas):
+def _local_lookup(rel, logw_r, x_r, s_r):
     """Shard-local inverse-CDF + gather against the currently-held shard.
 
     rel [b, Ks] mass positions relative to the held shard's offset (sorted;
@@ -81,15 +78,6 @@ def _local_lookup(rel, logw_r, x_r, s_r, use_pallas):
     held shard's weight sum (in the global max-shifted units).
     Returns (a [b, Ks] local indices, got [b, D, Ks] gathered particles).
     """
-    if use_pallas:
-        from psvo_tpu.ops import pallas_resample
-
-        # The kernel scales its positions by its own total, which differs
-        # from s_r only by exp(m - m_r): the comparison is scale-invariant,
-        # so feeding rel/s_r reproduces the exact counts.
-        u_frac = rel / jnp.maximum(s_r, 1e-37)
-        a, got = pallas_resample.resample_and_gather(u_frac, logw_r, x_r)
-        return a, got
     m = jnp.max(logw_r, axis=-1, keepdims=True)
     # recompute the held shard's CDF in ITS OWN max units, then rescale the
     # queries to match (cheaper than rotating the CDF alongside x)
@@ -103,7 +91,7 @@ def _local_lookup(rel, logw_r, x_r, s_r, use_pallas):
     return a, got
 
 
-def _island(u_loc, logw_loc, x_loc, *, ess_threshold, use_pallas):
+def _island(u_loc, logw_loc, x_loc, *, ess_threshold):
     """Per-shard body. u_loc [b, Ks] this shard's output slots' positions."""
     pp = context.PARTICLE_AXIS
     n_shards = jax.lax.axis_size(pp)
@@ -150,7 +138,7 @@ def _island(u_loc, logw_loc, x_loc, *, ess_threshold, use_pallas):
         base = jax.lax.dynamic_index_in_dim(
             offsets, src_shard, axis=1, keepdims=True
         )  # [b, 1]
-        a, got = _local_lookup(big_u - base, logw_r, x_r, s_r, use_pallas)
+        a, got = _local_lookup(big_u - base, logw_r, x_r, s_r)
         mask = src == src_shard  # [b, Ks]
         out = jnp.where(mask[:, None, :], got, out)
         idx_g = jnp.where(mask, src_shard * ks + a, idx_g)

@@ -7,7 +7,7 @@ workload's EP-analog). Rather than thread mesh objects through every function,
 `psvo_tpu.smc` calls `constrain(x)` on its [B, K, ...] tensors; when a mesh is
 active (set by `psvo_tpu.parallel.sharding`), this lowers to
 `jax.lax.with_sharding_constraint`, and GSPMD propagates the layout through
-the whole scan, inserting ICI collectives (psum for the weight normalizer,
+the whole scan, inserting collectives (psum for the weight normalizer,
 all-gathers for cross-shard resampling) where needed. When no mesh is active
 it is a no-op, so the single-chip path pays nothing.
 """

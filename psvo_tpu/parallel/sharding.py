@@ -3,19 +3,20 @@
 The reference has no distributed backend (SURVEY.md §2-B); the rebuild's
 "backend" is exactly this module — PartitionSpecs over a
 `jax.sharding.Mesh(("data", "particle"))` plus GSPMD-inserted XLA collectives
-riding ICI. No hand-written transport:
+(NCCL between the cards of one host). No hand-written transport:
 
 - batch-of-trajectories shards over "data" (pure data parallelism);
-- the K-particle axis shards over "particle" (BASELINE.json config #5:
-  "K=8192 particles sharded over ICI on v5e-8"): per-step weight
-  normalization becomes a psum, resampling a cross-shard gather — both
-  emitted by XLA from the sharding constraints set in
+- the K-particle axis shards over "particle" (BASELINE.json config #5,
+  K=8192, on the four cards of one host): per-step weight normalization
+  becomes a psum and resampling a ppermute ring inside a shard_map island
+  (`psvo_tpu.ops.sharded_resampling`); the layout constraints come from
   `psvo_tpu.parallel.context`;
 - params/optimizer state replicate (networks are tiny MLPs — TP/PP are
   inapplicable by design, SURVEY.md §2-B).
 
-Validated without a pod via 8 virtual CPU devices (tests/test_sharding.py)
-and the driver's `dryrun_multichip`.
+Tested on 8 virtual CPU devices (tests/test_sharding.py,
+`__graft_entry__.dryrun_multichip`) and run on four cards by
+`chip_smoke.py --multi`.
 """
 
 from __future__ import annotations
@@ -47,81 +48,19 @@ def make_mesh(cfg: Config, devices=None) -> Mesh:
         raise ValueError(
             f"batch_size={cfg.train.batch_size} not divisible by mesh.data={cfg.mesh.data}"
         )
-    devices = _slice_ordered(cfg, list(devices[:n]))
-    grid = np.asarray(devices).reshape(cfg.mesh.data, cfg.mesh.particle)
+    grid = np.asarray(list(devices[:n])).reshape(cfg.mesh.data, cfg.mesh.particle)
     return Mesh(grid, (context.DATA_AXIS, context.PARTICLE_AXIS))
 
 
-def _slice_ordered(cfg: Config, devices: list) -> list:
-    """Order devices so the (data, particle) grid keeps DCN off the hot path.
-
-    Multi-slice layout (SURVEY.md §5 distributed row, "ICI and DCN"): devices
-    are sorted slice-major, so the row-major reshape to (data, particle) puts
-    every particle-axis row inside ONE slice — the per-timestep particle
-    collectives (psum normalizer, resampling ring) ride ICI, and only the
-    outer `slices`-sized component of the data axis (the once-per-step
-    gradient all-reduce) crosses DCN. Divisibility makes this exact: with
-    data % slices == 0, each slice holds (data/slices)·particle devices, a
-    whole number of particle rows.
-
-    Single-slice and virtual-CPU meshes (no `slice_index` attribute, or all
-    devices on one slice) pass through in natural order.
-    """
-    s = cfg.mesh.slices
-    if s < 1:
-        raise ValueError(f"mesh.slices={s} must be >= 1")
-    if cfg.mesh.data % s:
-        raise ValueError(
-            f"mesh.data={cfg.mesh.data} not divisible by mesh.slices={s}: "
-            "the data axis is the only axis allowed to span DCN, so it must "
-            "split evenly across slices (particle stays intra-slice)"
-        )
-    slice_ids = [getattr(d, "slice_index", 0) or 0 for d in devices]
-    groups: dict[int, list] = {}
-    for d, sid in zip(devices, slice_ids):
-        groups.setdefault(sid, []).append(d)
-    if s > 1:
-        if len(groups) == 1:
-            # Emulation (one physical slice / virtual devices): the layout is
-            # still exercised — contiguous blocks stand in for slices.
-            pass
-        elif len(groups) != s:
-            raise ValueError(
-                f"mesh.slices={s} but devices span {len(groups)} slice(s) "
-                f"(slice_index values: {sorted(groups)})"
-            )
-        else:
-            per = len(devices) // s
-            if any(len(g) != per for g in groups.values()):
-                raise ValueError(
-                    "uneven devices per slice: "
-                    f"{ {k: len(v) for k, v in groups.items()} }"
-                )
-            return [d for sid in sorted(groups) for d in groups[sid]]
-    elif len(groups) > 1:
-        raise ValueError(
-            f"devices span {len(groups)} slices but mesh.slices=1: set "
-            "mesh.slices so the data axis (not particle) crosses DCN"
-        )
-    return devices
-
-
 def maybe_mesh(cfg: Config) -> Optional[Mesh]:
-    """The CLI/Trainer entry: build the configured mesh when the devices for
-    it exist, else None (single-device path — the preset stays runnable on
-    one chip, just unsharded)."""
-    n = cfg.mesh.data * cfg.mesh.particle
-    if n <= 1:
+    """The CLI/Trainer entry: the configured mesh, or None for a 1×1 mesh.
+
+    Raises (via make_mesh) when the mesh needs more devices than exist: a
+    sharded preset runs sharded or not at all. Set mesh.data=1 and
+    mesh.particle=1 to run it on one device."""
+    if cfg.mesh.data * cfg.mesh.particle <= 1:
         return None
-    devices = jax.devices()
-    if len(devices) < n:
-        print(
-            f"mesh {cfg.mesh.data}x{cfg.mesh.particle} requested but only "
-            f"{len(devices)} device(s) present — running unsharded",
-            flush=True,
-        )
-        return None
-    return make_mesh(cfg, devices)
+    return make_mesh(cfg)
 
 
 def batch_sharding(mesh: Mesh) -> NamedSharding:
@@ -135,25 +74,12 @@ def replicated(mesh: Mesh) -> NamedSharding:
 def place_replicated(mesh: Mesh, tree):
     """Re-place a pytree (params / optimizer state) replicated over the mesh.
 
-    Orbax restores arrays onto a single device; feeding those into a jitted
-    mesh step raises "incompatible devices". Checkpoint restore under a mesh
-    must therefore re-place explicitly (tests/test_sharding.py sharded
-    checkpoint roundtrip)."""
+    A checkpoint restores arrays onto a single device; feeding those into a
+    jitted mesh step raises "incompatible devices". Checkpoint restore under
+    a mesh must therefore re-place explicitly (tests/test_sharding.py
+    sharded checkpoint roundtrip)."""
     sh = replicated(mesh)
     return jax.tree_util.tree_map(lambda x: jax.device_put(x, sh), tree)
-
-
-def prepare_sharded(ssm, cfg: Config, mesh: Mesh):
-    """Return (ssm, cfg) adjusted for multi-device execution.
-
-    Currently the identity: every surviving Pallas kernel either runs
-    inside a shard_map island (manual SPMD — resampling, FFBSi) where it
-    executes per shard, or is gated off under meshes by its own `usable`
-    predicate (the trunk kernel). The hook stays because GSPMD cannot
-    partition a Pallas custom-call across a sharded axis — any future
-    kernel that would trace under pjit must be disabled here (the retired
-    fused-MLP kernel was, through round 4)."""
-    return ssm, cfg
 
 
 def make_sharded_train_step(ssm, cfg: Config, optimizer, mesh: Mesh):
@@ -166,7 +92,6 @@ def make_sharded_train_step(ssm, cfg: Config, optimizer, mesh: Mesh):
     """
     from psvo_tpu.train import make_train_step
 
-    ssm, cfg = prepare_sharded(ssm, cfg, mesh)
     context.set_mesh(mesh)
     step = make_train_step(ssm, cfg, optimizer)  # jitted inside
 
@@ -187,7 +112,6 @@ def make_sharded_eval_step(ssm, cfg: Config, mesh: Mesh):
     as training, so eval never silently falls back to a replicated run."""
     from psvo_tpu.train import make_eval_step
 
-    ssm, cfg = prepare_sharded(ssm, cfg, mesh)
     context.set_mesh(mesh)
     step = make_eval_step(ssm, cfg)
 
@@ -231,7 +155,7 @@ def dryrun(n_devices: int, verbose: bool = True) -> None:
     """Compile + execute sharded training steps on tiny shapes.
 
     Mesh shape: 2×(n/2) when n_devices ≥ 4 (exercising both axes), else 1×n.
-    Two steps run (VERDICT r3 missing #6): the FIVO filtering step (GSPMD
+    Two steps run: the FIVO filtering step (GSPMD
     constraints + psum normalizer + resampling island) AND a PSVO smoothing
     step — the sharded FFBSi backward island (ops/sharded_ffbsi.py) is the
     most intricate multi-device code in the framework and deserves
@@ -252,7 +176,6 @@ def dryrun(n_devices: int, verbose: bool = True) -> None:
         smc=dataclasses.replace(cfg.smc, n_particles=16 * d_part),
         train=dataclasses.replace(cfg.train, batch_size=2 * d_data),
         mesh=dataclasses.replace(cfg.mesh, data=d_data, particle=d_part),
-        use_pallas=False,  # dryrun runs on virtual CPU devices
     )
     fivo_summary = _dryrun_one(cfg, devices, "fivo")
 
@@ -263,15 +186,12 @@ def dryrun(n_devices: int, verbose: bool = True) -> None:
         smc=dataclasses.replace(
             psvo.smc, n_particles=16 * d_part, n_smoothing_particles=4
         ),
-        train=dataclasses.replace(
-            psvo.train, batch_size=2 * d_data, steps_per_call=1, rng_impl="threefry2x32"
-        ),
+        train=dataclasses.replace(psvo.train, batch_size=2 * d_data, steps_per_call=1),
         mesh=dataclasses.replace(psvo.mesh, data=d_data, particle=d_part),
-        use_pallas=False,
     )
     psvo_summary = _dryrun_one(psvo, devices, "psvo")
 
-    # segmented PSVO × mesh (VERDICT r4 #10): the long-T FFBSi segment
+    # segmented PSVO × mesh: the long-T FFBSi segment
     # recompute running INSIDE the per-segment shard_map islands is the
     # last intricate multi-device combination — prove it executes, not
     # just that the CPU suite covers it

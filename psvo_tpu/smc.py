@@ -6,16 +6,14 @@ log-normalize helpers — SURVEY.md §2-A/§3.2, unverified paths): per step,
 proposal, accumulate incremental log-weights `log f + log g − log q` and the
 normalizing-constant estimate.
 
-TPU-first shape (the reference builds a TF1 static graph; here the whole
-filter is one traced scan):
+Shape (the reference builds a TF1 static graph; here the whole filter is
+one traced scan):
 
 - time   -> `lax.scan` carry (inherently sequential; SURVEY.md §2-B)
 - batch  -> leading tensor axis [B], shardable over Mesh axis "data"
-- K      -> the LAST tensor axis (128-lane dim), shardable over Mesh axis
-  "particle". Particle tensors are channel-major [B, Dx, K]: the tiny state
-  dim pads only to the 8-sublane width instead of the 128-lane width — the
-  [B, K, Dx] layout wasted up to 64× HBM bytes on every particle tensor and
-  caused the measured B=32→128 throughput regression (round-1 ROADMAP #1/#5).
+- K      -> the LAST tensor axis, shardable over Mesh axis "particle".
+  Particle tensors are channel-major [B, Dx, K], so the tiny state dim is
+  never the minor (contiguous) axis of a particle tensor.
 - the only data-dependent op is the resampling gather
   (`psvo_tpu.ops.resampling`), which stays on-device.
 
@@ -33,7 +31,6 @@ against a NumPy reference (tests/reference_numpy) and the Kalman oracle.
 
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -73,7 +70,7 @@ class FilterResult:
     log_z: jax.Array  # [B] final normalizing-constant estimate
     increments: jax.Array  # [T, B] per-step logZ increments ℓ_t
     ess: jax.Array  # [T, B] effective sample size before resampling
-    x_last: jax.Array  # [B, Dx, K] (channel-major: K on lanes)
+    x_last: jax.Array  # [B, Dx, K] (channel-major: K last)
     logw_last: jax.Array  # [B, K]
     xs: Optional[jax.Array] = None  # [T, B, Dx, K]
     logws: Optional[jax.Array] = None  # [T, B, K]
@@ -114,8 +111,7 @@ def _make_step_body(ssm: SSM, params, cfg: SMCConfig):
     # shard_map island (hierarchical inverse-CDF + ppermute ring) so GSPMD
     # never sees the data-dependent gather — it would otherwise all-gather
     # the full [B, D, K] particle tensor every step (HLO-verified; see
-    # ops/sharded_resampling.py). Manual SPMD also re-enables the fused
-    # Pallas kernel per shard, where per-shard K is small.
+    # ops/sharded_resampling.py).
     from psvo_tpu.parallel.context import get_mesh
 
     mesh = get_mesh()
@@ -131,7 +127,6 @@ def _make_step_body(ssm: SSM, params, cfg: SMCConfig):
                 x,
                 method=cfg.resampling,
                 ess_threshold=cfg.ess_threshold,
-                use_pallas=ssm.use_pallas_resample,
             )
         return resampling.maybe_resample(
             u_t,
@@ -139,7 +134,6 @@ def _make_step_body(ssm: SSM, params, cfg: SMCConfig):
             x,
             method=cfg.resampling,
             ess_threshold=cfg.ess_threshold,
-            use_pallas=ssm.use_pallas_resample,
         )
 
     # q2 is precomputed for ALL steps outside the scan (ssm.q2_mean_scale);
@@ -168,7 +162,7 @@ def _make_step_body(ssm: SSM, params, cfg: SMCConfig):
                 picked = jnp.take_along_axis(logw_norm, idx, axis=-1)  # [B, K]
                 score = jnp.where(did, jnp.sum(picked, axis=-1), 0.0)
             # Named remat residual: the rematerialized backward would
-            # otherwise re-run the whole resample kernel just to rebuild this
+            # otherwise re-run the whole resample just to rebuild this
             # tensor; saving it costs the same memory as the scan carry.
             x = _checkpoint_name(x, "resampled_x")
         else:
@@ -259,374 +253,6 @@ def _q2_tm(ssm: SSM, params, cfg: SMCConfig, enc_tm):
     return z, z
 
 
-def _fused_preamble(ssm, params, key, ys, cfg, encoder_inputs, controls,
-                    kernel_rng: str = "none", n_segments: int = 0):
-    """Shared preamble of the megakernel (_forward_filter_fused) and the
-    K-tiled trunk-kernel (_forward_filter_trunk) paths: augmented/stacked
-    weights, fusion coefficients, bulk RNG streams, the t=0 proposal, the
-    packed per-step sm channels, and the ones-channel / control-row carry
-    padding. Returns a dict of everything both scan drivers consume.
-
-    Controls (Di > 0) ride rows dx:dx+Di of the particle carry — constant
-    over K, preserved by the ancestor gather, consumed by the q1/f trunks
-    as ordinary input columns ([x; u] order matching _with_control_cm);
-    step t's aq channel regenerates them with u_{t+1} (pack_sm)."""
-    from psvo_tpu.ops import pallas_step
-
-    batch, t_steps, _ = ys.shape
-    k = cfg.n_particles
-    dx, dy = ssm.dx, ssm.dy
-
-    ys_tm = jnp.swapaxes(ys, 0, 1)  # [T, B, Dy]
-    enc_tm = (
-        jnp.swapaxes(encoder_inputs, 0, 1) if encoder_inputs is not None else ys_tm
-    )
-
-    consts = pallas_step.prepare(ssm, params, cfg)
-    pd = consts["pd"]
-    aq, cq, sq, logsq_sum = pallas_step.fusion_coeffs(
-        ssm, params, cfg, consts, enc_tm
-    )  # [T, B, Dx], [T, B]
-
-    k0, k_prop, k_res = jax.random.split(key, 3)
-    eps0 = jax.random.normal(k0, (batch, dx, k))
-    k_prop_segs = k_res_segs = None
-    if n_segments:
-        # fused-segmented path: per-segment keys instead of full-T streams —
-        # each segment regenerates its own (ε, u) inside jax.checkpoint so
-        # the streams never persist as residuals (long-T memory story)
-        k_prop_segs = jax.random.split(k_prop, n_segments)
-        k_res_segs = jax.random.split(k_res, n_segments)
-        eps_scan = u_scan = None
-    elif kernel_rng == "scan":
-        # cfg.kernel_rng megakernel path: no bulk noise streams — the scan
-        # kernels draw their own ε/u from the hardware PRNG (pallas_step
-        # in-kernel RNG comment block). The [1, 2] f32 seed rides the eps
-        # slot (< 2²⁴ so the float carry is exact); u degrades to a
-        # [T−1, B, 1] shape-carrier the kernel never reads.
-        eps_scan = jax.random.randint(
-            k_prop, (1, 2), 0, 1 << 24
-        ).astype(jnp.float32)
-        u_scan = jnp.zeros((t_steps - 1, batch, 1))
-    else:
-        if kernel_rng == "trunk":
-            # cfg.kernel_rng trunk path: the per-STEP kernel draws its own ε
-            # per (b, ktile) tile; the eps slot carries [T−1, 1, 4] f32
-            # (seed0, seed1, t, 0) rows sliced by the XLA scan (t < 2²⁴ so
-            # the float carry is exact). u stays a REAL stream — resampling
-            # runs outside this kernel.
-            seeds = jax.random.randint(k_prop, (2,), 0, 1 << 24).astype(
-                jnp.float32
-            )
-            ts = jnp.arange(t_steps - 1, dtype=jnp.float32)
-            eps_scan = jnp.concatenate(
-                [
-                    jnp.broadcast_to(seeds[None], (t_steps - 1, 2)),
-                    ts[:, None],
-                    jnp.zeros((t_steps - 1, 1), jnp.float32),
-                ],
-                axis=1,
-            )[:, None, :]  # [T-1, 1, 4]
-        else:
-            eps_scan = jax.random.normal(k_prop, (t_steps - 1, batch, dx, k))
-        if cfg.resampling != "none":
-            u_scan = resampling.bulk_positions(
-                k_res, t_steps - 1, batch, k, cfg.resampling
-            )
-        else:  # trunk path only — the megakernel requires resampling
-            u_scan = jnp.zeros((t_steps - 1, batch, 1))
-
-    x0, alpha0 = _init_t0(ssm, params, eps0, ys_tm[0], enc_tm[0])
-    ell0 = _lse(alpha0) - jnp.log(float(k))
-
-    # α bias, K-independent scalar part: log f + log g − log q's constant
-    # terms (Dx·½log2π cancels between −log q and log f; see pallas_step
-    # module docstring). The K-dependent ½Σε² part is computed IN-KERNEL
-    # from the ε operand — the outside bulk reduce + the [T−1,B,K] ab
-    # stream (and its d_ab twin) were ~0.5 ms/step of XLA glue (round 3).
-    ab_scalar = (
-        logsq_sum[1:]
-        - consts["log_sf_sum"]
-        - consts["log_sg_sum"]
-        - dy * 0.5 * jnp.log(2.0 * jnp.pi)
-    )  # [T-1, B]
-
-    # row pd-1 pinned to 1: the ones-channel carrying the folded biases
-    # (pallas_step module docstring) — the gather preserves it, and the
-    # kernel's draw regenerates it via aq's pinned row
-    x0_p = jnp.pad(x0, ((0, 0), (0, pd - dx), (0, 0)))
-    x0_p = x0_p.at[:, pd - 1, :].set(1.0)
-    di = ssm.di
-    ctrl_next = None
-    if di:
-        ctrl_tm = _controls_tm(controls, batch, t_steps, di)  # [T, B, Di]
-        # the carry INTO step t must hold u_t: x0 carries ctrl[1]; the
-        # carry built at step t (x_new) carries ctrl[t+1] (zeros after T-1)
-        x0_p = x0_p.at[:, dx : dx + di, :].set(ctrl_tm[1][:, :, None])
-        ctrl_next = jnp.concatenate(
-            [ctrl_tm[2:], jnp.zeros_like(ctrl_tm[:1])], axis=0
-        )
-
-    # pack every small per-step vector as lane-channels of ONE tensor, in
-    # bulk outside the scan (kernel operand-shape rule: no dim-1 operands)
-    sm_scan = pallas_step.pack_sm(
-        aq[1:], cq[1:], sq[1:], ys_tm[1:], ab_scalar, pd,
-        ctrl_next=ctrl_next, dx=dx,
-    )
-    # ε streams UNPADDED [T-1, B, Dx, K]: the kernels pad the Dx sublanes to
-    # PD in VMEM — the XLA-level pad measured 158 µs/step at the primary
-    # config plus ~20 MB/step of pad-row HBM traffic across both kernels
-    # (round-3 profile, fusion `pad.14`)
-    return {
-        "pd": pd,
-        "n_mid": consts["n_mid"],
-        "activation": consts["activation"],
-        "weights": consts["w"],
-        "sconst": consts["sconst"],
-        "x0": x0,
-        "x0_p": x0_p,
-        "alpha0": alpha0,
-        "ell0": ell0,
-        "sm_scan": sm_scan,
-        "eps_scan": eps_scan,
-        "u_scan": u_scan,
-        "k_prop_segs": k_prop_segs,
-        "k_res_segs": k_res_segs,
-    }
-
-
-def _forward_filter_fused(
-    ssm: SSM,
-    params,
-    key: jax.Array,
-    ys: jax.Array,
-    cfg: SMCConfig,
-    *,
-    cache: bool,
-    encoder_inputs: Optional[jax.Array],
-    controls: Optional[jax.Array] = None,
-) -> FilterResult:
-    """Megakernel path: ONE Pallas kernel per scan step (resample + stacked
-    q1/f + draw + g + α + ℓ — ops/pallas_step.py) with a recompute custom
-    VJP, so no jax.checkpoint wrapping is needed: the kernel's own residuals
-    (resampled particles + ancestor indices) ARE the remat policy.
-    """
-    from psvo_tpu.ops import pallas_step
-
-    k = cfg.n_particles
-    dx = ssm.dx
-
-    # in-kernel RNG: whole-scan systematic megakernel only (multinomial's
-    # sorted iid positions would need an in-kernel sort; the per-step A/B
-    # path and the trunk/unfused paths keep the streams). Interpret mode is
-    # excluded — prng_seed has no CPU lowering (JAX 0.9.0, verified
-    # 2026-08-20), so CPU tests of kernel_rng presets silently keep streams.
-    kernel_rng = (
-        cfg.kernel_rng
-        and pallas_step.SCAN_FUSED
-        and cfg.resampling == "systematic"
-        and not pallas_step._INTERPRET
-    )
-    pre = _fused_preamble(
-        ssm, params, key, ys, cfg, encoder_inputs, controls,
-        kernel_rng="scan" if kernel_rng else "none",
-    )
-    pd = pre["pd"]
-    x0, x0_p, alpha0, ell0 = pre["x0"], pre["x0_p"], pre["alpha0"], pre["ell0"]
-    sm_scan, eps_scan, u_scan = pre["sm_scan"], pre["eps_scan"], pre["u_scan"]
-
-    static = (k, pd, pre["n_mid"], pre["activation"])
-    weights = pre["weights"]
-    sconst = pre["sconst"]
-
-    if pallas_step.SCAN_FUSED:
-        # whole-scan megakernel: ONE pallas_call per direction for all T-1
-        # steps (carry in VMEM scratch, per-step operands streamed by
-        # t-indexed BlockSpecs) — no lax.scan glue, 2 launches per train step
-        rng_dx = dx if kernel_rng else None
-        outs = pallas_step._scan_call(
-            static + (rng_dx, cache), x0_p, alpha0, sm_scan, eps_scan, u_scan,
-            sconst, *weights,
-        )
-        if cache:
-            x_last, logw_last, stats_all, xs_scan, alphas = outs
-        else:
-            (x_last, logw_last, stats_all), xs_scan, alphas = outs, None, None
-        ells = stats_all[:, :, 0, 1]
-        esss = stats_all[:, :, 0, 2]
-        fmeans = stats_all[:, :, :, 0]
-    else:
-        def body(carry, inputs):
-            x, logw = carry
-            sm_t, eps_t, u_t = inputs
-            x_new, alpha, stats = pallas_step._step_call(
-                static, logw, u_t, x, eps_t, sm_t, sconst, *weights
-            )
-            # stats lanes: 0 = filtered mean, [0,1] = ℓ, [0,2] = ESS. The
-            # [B,PD,K] particle / [B,K] weight stacks ride the ys outputs
-            # only when the smoothing pass will read them — otherwise they
-            # are two extra dynamic-update-slices per step next to the VJP's
-            # own residual saves
-            big = (x_new, alpha) if cache else ()
-            return (x_new, alpha), big + (
-                stats[:, 0, 1], stats[:, 0, 2], stats[:, :, 0]
-            )
-
-        (x_last, logw_last), outs = jax.lax.scan(
-            body,
-            (x0_p, alpha0),
-            (sm_scan, eps_scan, u_scan),
-        )
-        if cache:
-            xs_scan, alphas, ells, esss, fmeans = outs
-        else:
-            xs_scan = alphas = None
-            ells, esss, fmeans = outs
-
-    increments = jnp.concatenate([ell0[None], ells], axis=0)
-    ess_all = jnp.concatenate(
-        [effective_sample_size(alpha0, axis=-1)[None], esss], axis=0
-    )
-    xs = logws = None
-    if cache:
-        xs = jnp.concatenate([x0[None], xs_scan[:, :, :dx, :]], axis=0)
-        logws = jnp.concatenate([alpha0[None], alphas], axis=0)
-    fmean0 = jnp.einsum("bk,bdk->bd", jax.nn.softmax(alpha0, axis=-1), x0)
-    return FilterResult(
-        log_z=jnp.sum(increments, axis=0),
-        increments=increments,
-        ess=ess_all,
-        x_last=x_last[:, :dx, :],
-        logw_last=logw_last,
-        xs=xs,
-        logws=logws,
-        filtered_means=jnp.concatenate([fmean0[None], fmeans[:, :, :dx]], axis=0),
-        score_surrogate=None,  # eligibility requires use_stop_gradient=True
-    )
-
-
-def _forward_filter_trunk(
-    ssm: SSM,
-    params,
-    key: jax.Array,
-    ys: jax.Array,
-    cfg: SMCConfig,
-    *,
-    cache: bool,
-    encoder_inputs: Optional[jax.Array],
-    controls: Optional[jax.Array] = None,
-) -> FilterResult:
-    """K-tiled trunk-kernel path (ops/pallas_trunk.py): the scan stays in
-    XLA — resample via the existing large-K kernels (ops/pallas_resample),
-    lse/softmax/metrics as cheap [B, K] XLA ops — while the trunk MLPs +
-    draw + α fuse into ONE Pallas kernel per direction per step. Serves the
-    configs the whole-step megakernel's shape box excludes (PD > 8 states
-    like Lorenz-96, K > 2048), where the plain body's per-fusion HBM trips
-    held the MLP math to ~8 TFLOP/s (BASELINE.md row 5, round 3).
-
-    NOT wrapped in jax.checkpoint: the trunk kernel's custom VJP keeps
-    (x_res, x_new) as residuals and replays nothing, so the backward runs
-    pure transpose+weight-grad dots. The O(2·T·B·PD·K·4) bytes of residuals
-    this parks in HBM is gated by usable()'s shape box (≤ ~2.6 GB at
-    BASELINE row 5; 16 GB HBM on v5e).
-    """
-    from psvo_tpu.ops import pallas_trunk
-
-    k = cfg.n_particles
-    dx = ssm.dx
-    resample_on = cfg.resampling != "none"
-
-    # in-kernel RNG for the per-step trunk kernel: kills the eps stream
-    # ([T−1, B, Dx, K] — ~1 GB/step at the K=8192 L96 row) and its bulk
-    # generation; u stays a stream (resampling runs outside the kernel).
-    # rng_tiles_ok: the per-tile seed fold is injective only to 64 K-tiles.
-    _pd_est = pallas_trunk._round_up(max(ssm.dx + ssm.di, ssm.dy) + 1, 8)
-    kernel_rng = (
-        cfg.kernel_rng
-        and not pallas_trunk._INTERPRET
-        and pallas_trunk.rng_tiles_ok(k, _pd_est)
-    )
-    pre = _fused_preamble(
-        ssm, params, key, ys, cfg, encoder_inputs, controls,
-        kernel_rng="trunk" if kernel_rng else "none",
-    )
-    pd = pre["pd"]
-    x0, x0_p, alpha0, ell0 = pre["x0"], pre["x0_p"], pre["alpha0"], pre["ell0"]
-
-    static = (pd, pre["n_mid"], dx if kernel_rng else None)
-    weights = pre["weights"]
-    sconst = pre["sconst"]
-
-    def body(carry, inputs):
-        x, logw = carry
-        sm_t, eps_t, u_t = inputs
-
-        score = jnp.zeros(logw.shape[0])
-        if resample_on:
-            logw_pre = logw
-            with jax.named_scope("resample"):
-                # the ones-channel / control rows are constant over K, so
-                # the ancestor gather preserves them
-                x, logw, did, ess, idx = resampling.maybe_resample(
-                    u_t, logw, x,
-                    method=cfg.resampling,
-                    ess_threshold=cfg.ess_threshold,
-                    use_pallas=ssm.use_pallas_resample,
-                )
-            if not cfg.use_stop_gradient:
-                # score-function term for the resampling distribution (the
-                # full FIVO gradient) — see _make_step_body
-                logw_norm, _ = log_normalize(logw_pre, axis=-1)
-                picked = jnp.take_along_axis(logw_norm, idx, axis=-1)
-                score = jnp.where(did, jnp.sum(picked, axis=-1), 0.0)
-        else:
-            ess = effective_sample_size(logw, axis=-1)
-
-        with jax.named_scope("trunk_kernel"):
-            x_new, alpha = pallas_trunk.trunk_call(
-                static, x, eps_t, sm_t, sconst, *weights
-            )
-        logw_new = constrain(logw + alpha)
-        ell = _lse(logw_new) - _lse(logw)
-        w_norm = jax.nn.softmax(logw_new, axis=-1)
-        fmean = jnp.einsum("bk,bdk->bd", w_norm, x_new[:, :dx, :])
-
-        big = (x_new, logw_new) if cache else ()
-        return (x_new, logw_new), big + (ell, ess, score, fmean)
-
-    (x_last, logw_last), outs = jax.lax.scan(
-        body, (x0_p, alpha0), (pre["sm_scan"], pre["eps_scan"], pre["u_scan"])
-    )
-    if cache:
-        xs_scan, logws_scan, ells, esss, scores, fmeans = outs
-    else:
-        xs_scan = logws_scan = None
-        ells, esss, scores, fmeans = outs
-
-    increments = jnp.concatenate([ell0[None], ells], axis=0)
-    ess_all = jnp.concatenate(
-        [effective_sample_size(alpha0, axis=-1)[None], esss], axis=0
-    )
-    xs = logws = None
-    if cache:
-        xs = jnp.concatenate([x0[None], xs_scan[:, :, :dx, :]], axis=0)
-        logws = jnp.concatenate([alpha0[None], logws_scan], axis=0)
-    fmean0 = jnp.einsum("bk,bdk->bd", jax.nn.softmax(alpha0, axis=-1), x0)
-    return FilterResult(
-        log_z=jnp.sum(increments, axis=0),
-        increments=increments,
-        ess=ess_all,
-        x_last=x_last[:, :dx, :],
-        logw_last=logw_last,
-        xs=xs,
-        logws=logws,
-        filtered_means=jnp.concatenate([fmean0[None], fmeans], axis=0),
-        score_surrogate=(
-            None if cfg.use_stop_gradient else _score_surrogate(ells, scores)
-        ),
-    )
-
-
 def forward_filter(
     ssm: SSM,
     params,
@@ -648,25 +274,10 @@ def forward_filter(
     noise is a testing/diagnostic hook: a (eps0 [B,Dx,K], eps_scan
     [T-1,B,Dx,K], u_scan [T-1,B,K]) tuple replacing the key-derived draws —
     the SURVEY §4.3 gradient-enumeration test conditions on fixed noise and
-    enumerates the resampling outcomes through u_scan. Forces the plain
-    scan path (the fused kernel derives its own streams from the key).
+    enumerates the resampling outcomes through u_scan, and the GPU-vs-CPU
+    comparison feeds both backends the same draws through it.
     """
     batch, t_steps, _ = ys.shape
-    if t_steps >= 2 and ssm.use_pallas_step and noise is None:
-        from psvo_tpu.ops import pallas_step, pallas_trunk
-
-        if pallas_step.usable(ssm, cfg, batch):
-            return _forward_filter_fused(
-                ssm, params, key, ys, cfg, cache=cache,
-                encoder_inputs=encoder_inputs, controls=controls,
-            )
-        if pallas_trunk.usable(ssm, cfg, batch):
-            # outside the megakernel's shape box (PD > 8 / K > 2048) the
-            # trunk MLPs + draw + α still fuse; resample/lse stay in XLA
-            return _forward_filter_trunk(
-                ssm, params, key, ys, cfg, cache=cache,
-                encoder_inputs=encoder_inputs, controls=controls,
-            )
     k = cfg.n_particles
     resample_on = cfg.resampling != "none"
 
@@ -677,9 +288,8 @@ def forward_filter(
     ctrl_tm = _controls_tm(controls, batch, t_steps, ssm.di)
     q2m_tm, q2s_tm = _q2_tm(ssm, params, cfg, enc_tm)
 
-    # ---- Bulk RNG: one threefry call per stream for ALL T steps. The scan is
-    # latency-bound on TPU, so per-step key splits + sample chains dominate;
-    # hoisting them out cuts per-timestep kernel count sharply.
+    # ---- Bulk RNG: one call per stream for ALL T steps, outside the scan,
+    # so the scan body launches no per-step key splits or sample chains.
     if noise is not None:
         eps0, eps_scan, u_scan = noise
     else:
@@ -688,9 +298,7 @@ def forward_filter(
         eps_scan = jax.random.normal(k_prop, (t_steps - 1, batch, ssm.dx, k))
         if resample_on:
             # [T-1, B, K] quantile positions, sorted along K, built in one
-            # shot — per-step position math (1-D iota / sort inside the scan)
-            # measured ~1 ms/step on v5e, several times the entire
-            # resampling kernel.
+            # shot instead of per-step position math inside the scan.
             u_scan = resampling.bulk_positions(
                 k_res, t_steps - 1, batch, k, cfg.resampling
             )
@@ -780,23 +388,14 @@ def _score_surrogate(ells: jax.Array, scores: jax.Array) -> jax.Array:
 @jax.tree_util.register_dataclass
 @dataclass
 class SegmentedCache:
-    """Everything needed to reproduce any forward segment exactly.
-
-    Two layouts share the structure (round-5, VERDICT r4 weak #4): the
-    plain-scan path stores unpadded [B, Dx, K] carries; the fused path
-    (`fused=True`) stores the megakernel's PADDED [B, PD, K] carries plus
-    the packed per-step sm channels it streamed (`sm_seg` — K-independent,
-    O(T·B·PD·128) ≪ the O(T·B·K) cache segmentation removes), so
-    `recompute_segment` can replay the SAME kernel bit-identically."""
+    """Everything needed to reproduce any forward segment exactly."""
 
     x0: jax.Array  # [B, Dx, K] initial particles (channel-major)
     alpha0: jax.Array  # [B, K] t=0 log-weights
-    seg_x: jax.Array  # [S, B, Dx|PD, K] carry entering each segment
+    seg_x: jax.Array  # [S, B, Dx, K] carry entering each segment
     seg_logw: jax.Array  # [S, B, K]
     k_prop_segs: jax.Array  # [S] keys for per-segment proposal noise
     k_res_segs: jax.Array  # [S] keys for per-segment resampling positions
-    sm_seg: Optional[jax.Array] = None  # [S, L, B, PD, 128] fused sm stream
-    fused: bool = dataclasses.field(default=False, metadata=dict(static=True))
 
 
 def forward_filter_segmented(
@@ -817,15 +416,6 @@ def forward_filter_segmented(
     if (t_steps - 1) % n_segments:
         raise ValueError(f"T-1={t_steps-1} not divisible by {n_segments} segments")
     seg_len = (t_steps - 1) // n_segments
-
-    if t_steps >= 2 and ssm.use_pallas_step:
-        from psvo_tpu.ops import pallas_step
-
-        if pallas_step.SCAN_FUSED and pallas_step.usable(ssm, cfg, batch):
-            return _forward_filter_segmented_fused(
-                ssm, params, key, ys, cfg, n_segments,
-                encoder_inputs=encoder_inputs, controls=controls,
-            )
 
     ys_tm = jnp.swapaxes(ys, 0, 1)
     enc_tm = (
@@ -909,144 +499,6 @@ def forward_filter_segmented(
     return result, cache
 
 
-def _forward_filter_segmented_fused(
-    ssm: SSM,
-    params,
-    key: jax.Array,
-    ys: jax.Array,
-    cfg: SMCConfig,
-    n_segments: int,
-    *,
-    encoder_inputs: Optional[jax.Array] = None,
-    controls: Optional[jax.Array] = None,
-) -> tuple[FilterResult, SegmentedCache]:
-    """Segmented forward where EACH SEGMENT runs the whole-scan megakernel
-    (round-5, VERDICT r4 weak #4: at T=100/segments=1 every preset used the
-    fused scan but the segmented path always fell back to the plain body —
-    now the long-T path and the fused kernels meet).
-
-    Memory design: each segment call regenerates its own (ε, u) streams
-    from per-segment keys INSIDE `jax.checkpoint` (cfg.remat), so the
-    residuals that persist across the whole forward are only the segment
-    boundary carries + the K-independent packed sm stream — the megakernel
-    VJP's O(T·B·PD·K) (x_res, x_new, idx) residual streams exist one
-    segment at a time, during that segment's backward. Peak VJP-residual
-    HBM drops from O(T·K) to O((T/S)·K + S·K); the ~3× recompute the
-    backward pays per segment is the standard remat trade.
-    """
-    from psvo_tpu.ops import pallas_step
-
-    batch, t_steps, _ = ys.shape
-    k = cfg.n_particles
-    dx = ssm.dx
-    seg_len = (t_steps - 1) // n_segments
-
-    pre = _fused_preamble(
-        ssm, params, key, ys, cfg, encoder_inputs, controls,
-        n_segments=n_segments,
-    )
-    pd = pre["pd"]
-    x0, x0_p, alpha0, ell0 = pre["x0"], pre["x0_p"], pre["alpha0"], pre["ell0"]
-    weights, sconst = pre["weights"], pre["sconst"]
-    k_prop_segs, k_res_segs = pre["k_prop_segs"], pre["k_res_segs"]
-    sm_seg = pre["sm_scan"].reshape(
-        n_segments, seg_len, *pre["sm_scan"].shape[1:]
-    )
-    static = (k, pd, pre["n_mid"], pre["activation"], None, False)
-
-    def seg_fn(x_p, logw, kp, kr, sm_s):
-        eps, u = _segment_randomness(ssm, cfg, kp, kr, seg_len, batch, k)
-        return pallas_step._scan_call(
-            static, x_p, logw, sm_s, eps, u, sconst, *weights
-        )
-
-    seg_call = jax.checkpoint(seg_fn) if cfg.remat else seg_fn
-
-    def outer(carry, inputs):
-        x_p, logw = carry
-        kp, kr, sm_s = inputs
-        x_out, logw_out, stats = seg_call(x_p, logw, kp, kr, sm_s)
-        return (x_out, logw_out), (x_p, logw, stats)
-
-    (x_last, logw_last), (seg_x, seg_logw, stats_seg) = jax.lax.scan(
-        outer, (x0_p, alpha0), (k_prop_segs, k_res_segs, sm_seg)
-    )
-    stats_all = stats_seg.reshape(t_steps - 1, *stats_seg.shape[2:])
-    ells = stats_all[:, :, 0, 1]
-    esss = stats_all[:, :, 0, 2]
-    fmeans = stats_all[:, :, :, 0]
-
-    increments = jnp.concatenate([ell0[None], ells], axis=0)
-    ess_all = jnp.concatenate(
-        [effective_sample_size(alpha0, axis=-1)[None], esss], axis=0
-    )
-    fmean0 = jnp.einsum("bk,bdk->bd", jax.nn.softmax(alpha0, axis=-1), x0)
-    result = FilterResult(
-        log_z=jnp.sum(increments, axis=0),
-        increments=increments,
-        ess=ess_all,
-        x_last=x_last[:, :dx, :],
-        logw_last=logw_last,
-        filtered_means=jnp.concatenate(
-            [fmean0[None], fmeans[:, :, :dx]], axis=0
-        ),
-        score_surrogate=None,  # megakernel eligibility: use_stop_gradient
-    )
-    cache = SegmentedCache(
-        x0=x0,
-        alpha0=alpha0,
-        seg_x=seg_x,  # PADDED [S, B, PD, K] boundary carries
-        seg_logw=seg_logw,
-        k_prop_segs=k_prop_segs,
-        k_res_segs=k_res_segs,
-        sm_seg=sm_seg,
-        fused=True,
-    )
-    return result, cache
-
-
-def _recompute_segment_fused(
-    ssm: SSM, params, cfg: SMCConfig, cache: SegmentedCache, s: int
-) -> tuple[jax.Array, jax.Array]:
-    """Fused-path segment replay: same kernel, same streams (regenerated
-    from the cached per-segment keys), same packed sm slice — bit-identical
-    to the forward's segment by construction (`_scan_call` computes the
-    identical x/α stream whether or not `cache` plumbs it out; the weights
-    re-pack via `pallas_step.prepare`, a deterministic function of params).
-
-    Wrapped in jax.checkpoint under cfg.remat (round-5 review finding):
-    the replayed xs feed the smoothed-path log-joint DIFFERENTIABLY (the
-    reparameterized-through-support-atoms estimator), so without the
-    checkpoint every segment's _scan_call VJP residual streams
-    (x_res/x_new/idx, O(L·B·PD·K) each) would coexist across the whole
-    objective backward — exactly the O(T·K) memory term segmentation
-    removes. With it, residuals are (carry, keys, sm slice) and the
-    backward replays the segment (same keys → bit-identical)."""
-    from psvo_tpu.ops import pallas_step
-
-    dx = ssm.dx
-
-    def replay(seg_x_s, seg_logw_s, kp, kr, sm_s):
-        seg_len, batch = sm_s.shape[0], sm_s.shape[1]
-        k = cfg.n_particles
-        eps, u = _segment_randomness(ssm, cfg, kp, kr, seg_len, batch, k)
-        consts = pallas_step.prepare(ssm, params, cfg)
-        static = (
-            k, consts["pd"], consts["n_mid"], consts["activation"], None, True
-        )
-        _, _, _, xs_scan, alphas = pallas_step._scan_call(
-            static, seg_x_s, seg_logw_s, sm_s, eps, u,
-            consts["sconst"], *consts["w"],
-        )
-        return xs_scan[:, :, :dx, :], alphas
-
-    fn = jax.checkpoint(replay) if cfg.remat else replay
-    return fn(
-        cache.seg_x[s], cache.seg_logw[s],
-        cache.k_prop_segs[s], cache.k_res_segs[s], cache.sm_seg[s],
-    )
-
-
 def recompute_segment(
     ssm: SSM,
     params,
@@ -1061,9 +513,7 @@ def recompute_segment(
 
     Returns (xs [L,B,Dx,K], logws [L,B,K]) — the cache entries for
     t in [1 + s·L, s·L + L], bit-identical to the original forward pass
-    (same keys, same kernels)."""
-    if cache.fused:
-        return _recompute_segment_fused(ssm, params, cfg, cache, s)
+    (same keys, same scan body)."""
     seg_len, batch = ys_seg_s.shape[0], ys_seg_s.shape[1]
     k = cfg.n_particles
     eps, u = _segment_randomness(

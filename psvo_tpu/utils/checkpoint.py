@@ -1,156 +1,146 @@
-"""Orbax checkpointing: step-exact resume including PRNG key state.
+"""NumPy `.npz` checkpointing: step-exact resume including PRNG key state.
 
 The reference has no mid-run resume (SURVEY.md §5 "Checkpoint / resume:
-essentially absent"); the rebuild owes the TPU-native equivalent: an Orbax
-`CheckpointManager` saving (params, optimizer state, PRNG key, step, early-
-stopping state, config hash) every N steps, with a `--resume` CLI flag.
-Restart is deterministic: the PRNG key is serialized via its raw key data.
+essentially absent"); the rebuild saves (params, optimizer state, best
+params, PRNG key data, step, early-stopping state, config hash) every N
+steps into one `.npz` file per step, with a `--resume` CLI flag. Each file is
+written to a temporary name and renamed into place, so a run killed
+mid-save leaves the previous checkpoints intact. Restart is deterministic:
+the PRNG key is serialized via its raw key data.
+
+Pytrees are stored as their flattened leaves in tree order
+(`params/0`, `params/1`, ...); restoring unflattens them into the caller's
+template, so the template fixes the structure and every leaf's shape is
+checked against it.
 """
 
 from __future__ import annotations
 
+import os
+import re
 from pathlib import Path
 from typing import Optional
 
 import jax
+import jax.numpy as jnp
 import numpy as np
-import orbax.checkpoint as ocp
+
+_NAME = re.compile(r"^ckpt_(\d+)\.npz$")
+
+
+def _flat(prefix: str, tree) -> dict[str, np.ndarray]:
+    leaves = jax.tree_util.tree_leaves(tree)
+    return {f"{prefix}/{i}": np.asarray(leaf) for i, leaf in enumerate(leaves)}
+
+
+def _unflat(prefix: str, template, data) -> object:
+    leaves, treedef = jax.tree_util.tree_flatten(template)
+    n_saved = sum(1 for name in data.files if name.startswith(prefix + "/"))
+    if n_saved != len(leaves):
+        raise ValueError(
+            f"checkpoint holds {n_saved} {prefix} leaves, template has {len(leaves)}"
+        )
+    out = []
+    for i, leaf in enumerate(leaves):
+        arr = data[f"{prefix}/{i}"]
+        if arr.shape != np.shape(leaf):
+            raise ValueError(
+                f"checkpoint {prefix} leaf {i} has shape {arr.shape}, "
+                f"template wants {np.shape(leaf)}"
+            )
+        out.append(jnp.asarray(arr))
+    return jax.tree_util.tree_unflatten(treedef, out)
 
 
 class Checkpointer:
     def __init__(self, directory: str | Path, config_hash: str, max_to_keep: int = 3):
         self.directory = Path(directory).absolute()
         self.config_hash = config_hash
-        self.manager = ocp.CheckpointManager(
-            self.directory,
-            options=ocp.CheckpointManagerOptions(max_to_keep=max_to_keep),
-        )
+        self.max_to_keep = max_to_keep
         self._last_saved = -1
+
+    def steps(self) -> list[int]:
+        """Saved steps, oldest first."""
+        if not self.directory.is_dir():
+            return []
+        found = (_NAME.match(p.name) for p in self.directory.iterdir())
+        return sorted(int(m.group(1)) for m in found if m)
+
+    def _path(self, step: int) -> Path:
+        return self.directory / f"ckpt_{step:010d}.npz"
 
     def save(self, state, force: bool = False) -> None:
         if state.step == self._last_saved and not force:
             return
         # best_params must travel with best_elbo: restoring the threshold
         # without the matching snapshot would end a resumed keep_best run on
-        # the last (possibly diverged) params. Saved as params when absent
-        # (has_best=0) to keep the payload structure static for Orbax.
+        # the last (possibly diverged) params.
         has_best = state.best_params is not None
         payload = {
-            "params": state.params,
-            "opt_state": state.opt_state,
-            "best_params": state.best_params if has_best else state.params,
-            "key_data": jax.random.key_data(state.key),
-            "scalars": {
-                "step": np.array([state.step], np.int64),
-                "best_elbo": np.array([state.best_elbo], np.float64),
-                "evals_since_best": np.array([state.evals_since_best], np.int64),
-                "has_best": np.array([int(has_best)], np.int64),
-            },
-            "config_hash": np.frombuffer(
-                self.config_hash.encode().ljust(16), dtype=np.uint8
-            ).copy(),
+            **_flat("params", state.params),
+            **_flat("opt_state", state.opt_state),
+            **(_flat("best_params", state.best_params) if has_best else {}),
+            "key_data": np.asarray(jax.random.key_data(state.key)),
+            "step": np.int64(state.step),
+            "best_elbo": np.float64(state.best_elbo),
+            "evals_since_best": np.int64(state.evals_since_best),
+            "has_best": np.bool_(has_best),
+            "config_hash": np.str_(self.config_hash),
         }
-        self.manager.save(state.step, args=ocp.args.StandardSave(payload))
-        self.manager.wait_until_finished()
+        self.directory.mkdir(parents=True, exist_ok=True)
+        final = self._path(state.step)
+        tmp = final.with_name(final.name + ".tmp")
+        with open(tmp, "wb") as f:
+            np.savez(f, **payload)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, final)
         self._last_saved = state.step
+        for old in self.steps()[: -self.max_to_keep]:
+            self._path(old).unlink()
 
-    def _saved_top_level_keys(self, step: int) -> set[str]:
-        """Top-level pytree keys of a saved checkpoint (legacy-format probe).
-
-        `item_metadata` resolves the tree only on a manager that has already
-        saved/restored with registered args; on a fresh manager it returns
-        None, so fall back to reading the step's `_METADATA` tree file.
-        """
-        meta = self.manager.item_metadata(step)
-        if meta is not None and hasattr(meta, "keys"):
-            return set(meta.keys())
-        import json
-
-        meta_file = self.directory / str(step) / "default" / "_METADATA"
-        tree = json.loads(meta_file.read_text())["tree_metadata"]
-        # keys are stringified key-paths like "('params', 'f', 'mean')"
-        return {
-            entry["key_metadata"][0]["key"] for entry in tree.values()
-        }
+    def _latest(self):
+        steps = self.steps()
+        return np.load(self._path(steps[-1])) if steps else None
 
     def restore_params(self, params_template):
         """Restore ONLY the model params (evaluation/inspection path).
 
         Decoupled from the optimizer-state tree on purpose: optimizer
-        structure may evolve across versions (e.g. the apply_if_finite wrap)
-        without invalidating saved models.
+        structure may evolve across versions without invalidating saved
+        models.
         """
-        step = self.manager.latest_step()
-        if step is None:
+        data = self._latest()
+        if data is None:
             return None
-        restored = self.manager.restore(
-            step,
-            args=ocp.args.PyTreeRestore(
-                item={"params": params_template}, partial_restore=True
-            ),
-        )
-        return restored["params"]
+        with data:
+            return _unflat("params", params_template, data)
 
     def restore(self, state, strict: bool = True) -> Optional[object]:
         """Restore into a template TrainState; returns None if no checkpoint.
 
         strict=False skips the config-hash check (tooling/inspection only)."""
-        step = self.manager.latest_step()
-        if step is None:
+        data = self._latest()
+        if data is None:
             return None
-        template = {
-            "params": state.params,
-            "opt_state": state.opt_state,
-            "best_params": state.params,
-            "key_data": jax.random.key_data(state.key),
-            "scalars": {
-                "step": np.zeros(1, np.int64),
-                "best_elbo": np.zeros(1, np.float64),
-                "evals_since_best": np.zeros(1, np.int64),
-                "has_best": np.zeros(1, np.int64),
-            },
-            "config_hash": np.zeros(16, dtype=np.uint8),
-        }
-        # Probe the saved tree structure instead of catch-all fallback: a
-        # genuinely corrupt checkpoint should surface its real error, not a
-        # confusing structure-mismatch from a second restore attempt.
-        is_legacy = "best_params" not in self._saved_top_level_keys(step)
-        if is_legacy:
-            # round-1 checkpoints predate best_params/has_best: restore the
-            # fields that exist and reset the best-ELBO tracking to scratch
-            # (including the patience counter — a stale evals_since_best
-            # against a -inf threshold would skew early stopping).
-            legacy = dict(template)
-            legacy.pop("best_params")
-            legacy["scalars"] = {
-                k: v for k, v in template["scalars"].items() if k != "has_best"
-            }
-            restored = self.manager.restore(
-                step, args=ocp.args.StandardRestore(legacy)
+        with data:
+            saved_hash = str(data["config_hash"])
+            if strict and saved_hash != self.config_hash:
+                raise ValueError(
+                    f"checkpoint config hash {saved_hash!r} != current {self.config_hash!r}"
+                )
+            state.params = _unflat("params", state.params, data)
+            state.opt_state = _unflat("opt_state", state.opt_state, data)
+            state.best_params = (
+                _unflat("best_params", state.params, data)
+                if bool(data["has_best"])
+                else None
             )
-            restored["best_params"] = None
-            restored["scalars"]["has_best"] = np.zeros(1, np.int64)
-            restored["scalars"]["best_elbo"] = np.array([-np.inf])
-            restored["scalars"]["evals_since_best"] = np.zeros(1, np.int64)
-        else:
-            restored = self.manager.restore(
-                step, args=ocp.args.StandardRestore(template)
+            state.key = jax.random.wrap_key_data(
+                jnp.asarray(data["key_data"]), impl=jax.random.key_impl(state.key)
             )
-        saved_hash = bytes(np.asarray(restored["config_hash"])).rstrip().decode()
-        if strict and saved_hash != self.config_hash:
-            raise ValueError(
-                f"checkpoint config hash {saved_hash!r} != current {self.config_hash!r}"
-            )
-        state.params = restored["params"]
-        state.opt_state = restored["opt_state"]
-        state.best_params = (
-            restored["best_params"]
-            if int(restored["scalars"]["has_best"][0])
-            else None
-        )
-        state.key = jax.random.wrap_key_data(restored["key_data"])
-        state.step = int(restored["scalars"]["step"][0])
-        state.best_elbo = float(restored["scalars"]["best_elbo"][0])
-        state.evals_since_best = int(restored["scalars"]["evals_since_best"][0])
+            state.step = int(data["step"])
+            state.best_elbo = float(data["best_elbo"])
+            state.evals_since_best = int(data["evals_since_best"])
         self._last_saved = state.step
         return state

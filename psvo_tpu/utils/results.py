@@ -40,6 +40,9 @@ class ResultsDir:
         (self.path / "history.json").write_text(json.dumps(history, indent=2))
 
     def plot_all(self, history, dataset=None, inferred=None) -> list[Path]:
+        """Write the experiment plots. Raises ModuleNotFoundError when
+        matplotlib is not installed (plots are optional: `pip install
+        .[plots]`)."""
         from psvo_tpu.utils import plots
 
         written = []

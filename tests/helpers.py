@@ -49,7 +49,6 @@ def lgssm_setup(
             resampling=resampling,
             use_bootstrap=True,
         ),
-        use_pallas=False,
     ).with_nets(q0=lin, q1=lin, q2=lin, f=lin, g=lin, qb=lin)
 
     ssm = SSM(cfg)
@@ -106,7 +105,6 @@ def lgssm_full_setup(
             resampling="systematic",
             use_bootstrap=True,
         ),
-        use_pallas=False,
     ).with_nets(q0=lin, q1=lin, q2=lin, f=tril, g=tril, qb=lin)
 
     ssm = SSM(cfg)

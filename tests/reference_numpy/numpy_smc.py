@@ -1,6 +1,6 @@
 """Trusted NumPy reimplementation of the reference's forward SMC objective.
 
-Two roles (SURVEY.md §4.2 / BASELINE.md):
+Two roles (SURVEY.md §4.2):
 1. Numerics cross-check — a slow, obviously-correct implementation of the
    same math as `psvo_tpu.smc.forward_filter` (resample → propose → weight,
    FIVO accumulation), statistically compared against the JAX path.
@@ -49,10 +49,13 @@ def _logsumexp(a, axis=-1):
     return np.squeeze(m, axis) + np.log(np.sum(np.exp(a - m), axis=axis))
 
 
-def _systematic_indices(rng, w):
+def _systematic_indices(rng, w, u0=None):
+    """u0 [B, 1] in [0, 1): the shared offset; drawn from rng when None."""
     k = w.shape[-1]
     cumw = np.cumsum(w, axis=-1)
-    u = (np.arange(k) + rng.uniform(size=(w.shape[0], 1))) / k
+    if u0 is None:
+        u0 = rng.uniform(size=(w.shape[0], 1))
+    u = (np.arange(k) + u0) / k
     idx = np.zeros_like(u, dtype=np.int64)
     for b in range(w.shape[0]):
         idx[b] = np.searchsorted(cumw[b], u[b], side="right")
@@ -83,9 +86,23 @@ class NumpySSMParams:
         )
 
 
-def numpy_forward_filter(model: NumpySSMParams, ys, k, seed=0, resampling="systematic"):
-    """Bootstrap/proposal SMC in plain NumPy. ys: [B, T, Dy]. Returns logZ [B]."""
+def numpy_forward_filter(
+    model: NumpySSMParams, ys, k, seed=0, resampling="systematic",
+    noise=None, controls=None,
+):
+    """Bootstrap/proposal SMC in plain NumPy. ys: [B, T, Dy]. Returns logZ [B].
+
+    noise optionally replaces the seeded draws with the exact draws of
+    `psvo_tpu.smc.forward_filter(..., noise=(eps0, eps_scan, u_scan))` in
+    their channel-major layout — eps0 [B, Dx, K], eps_scan [T-1, B, Dx, K],
+    u_scan [T-1, B, K] systematic positions — so the two filters can be
+    compared draw for draw. controls [B, T, Di] feed the q1 and f heads as
+    [x, u_t] (the JAX model's control input)."""
     rng = np.random.default_rng(seed)
+    if noise is not None:
+        eps0_n, eps_n, u_n = (np.asarray(a, np.float64) for a in noise)
+        eps0_n = np.swapaxes(eps0_n, -1, -2)  # [B, K, Dx]
+        eps_n = np.swapaxes(eps_n, -1, -2)  # [T-1, B, K, Dx]
     p = model.params
     batch, t_steps, _ = ys.shape
     dx = p["prior"]["mean"].shape[0]
@@ -101,7 +118,9 @@ def numpy_forward_filter(model: NumpySSMParams, ys, k, seed=0, resampling="syste
     else:
         m, s = ms(p["q0"], ys[:, 0])
         mean0, scale0 = m[:, None, :], s[:, None, :]
-    x = mean0 + scale0 * rng.standard_normal((batch, k, dx))
+    x = mean0 + scale0 * (
+        eps0_n if noise is not None else rng.standard_normal((batch, k, dx))
+    )
     gm, gs = ms(p["g"], x)
     log_g = _mvn_logpdf_diag(ys[:, 0][:, None, :], gm, gs)
     if model.use_bootstrap:
@@ -117,14 +136,21 @@ def numpy_forward_filter(model: NumpySSMParams, ys, k, seed=0, resampling="syste
     for t in range(1, t_steps):
         if resampling != "none":
             w = np.exp(logw - _logsumexp(logw)[:, None])
-            idx = _systematic_indices(rng, w)
+            u0 = None if noise is None else u_n[t - 1][:, :1] * k
+            idx = _systematic_indices(rng, w, u0)
             x = np.take_along_axis(x, idx[..., None], axis=1)
             logw = np.zeros_like(logw)
 
+        x_in = x
+        if controls is not None:
+            u_t = np.broadcast_to(
+                controls[:, t][:, None, :], (batch, k, controls.shape[-1])
+            )
+            x_in = np.concatenate([x, u_t], axis=-1)
         if model.use_bootstrap:
-            mq, sq = ms(p["f"], x)
+            mq, sq = ms(p["f"], x_in)
         else:
-            m1, s1 = ms(p["q1"], x)
+            m1, s1 = ms(p["q1"], x_in)
             if model.use_2q:
                 m2, s2 = ms(p["q2"], ys[:, t])
                 m2, s2 = m2[:, None, :], s2[:, None, :]
@@ -134,14 +160,16 @@ def numpy_forward_filter(model: NumpySSMParams, ys, k, seed=0, resampling="syste
                 sq = np.sqrt(var)
             else:
                 mq, sq = m1, s1
-        x_new = mq + sq * rng.standard_normal(x.shape)
+        x_new = mq + sq * (
+            eps_n[t - 1] if noise is not None else rng.standard_normal(x.shape)
+        )
 
         gm, gs = ms(p["g"], x_new)
         log_g = _mvn_logpdf_diag(ys[:, t][:, None, :], gm, gs)
         if model.use_bootstrap:
             alpha = log_g
         else:
-            fm, fs = ms(p["f"], x)
+            fm, fs = ms(p["f"], x_in)
             alpha = (
                 _mvn_logpdf_diag(x_new, fm, fs)
                 + log_g

@@ -57,8 +57,8 @@ def test_infer_with_particles():
 
 def test_infer_controls_required_and_used():
     """A di>0 model must (a) refuse inference without its controls and
-    (b) actually condition the posterior on them (VERDICT r2 missing #3:
-    silently-zero controls produced wrong posteriors with no error)."""
+    (b) actually condition the posterior on them: silently-zero controls
+    would give wrong posteriors with no error."""
     from psvo_tpu.config import preset
     from psvo_tpu.models.ssm import init_ssm
 
@@ -67,7 +67,6 @@ def test_infer_controls_required_and_used():
         cfg,
         data=dataclasses.replace(cfg.data, t_steps=8),
         smc=dataclasses.replace(cfg.smc, n_particles=32),
-        use_pallas=False,
     )
     ssm, params = init_ssm(cfg, jax.random.key(0))
     rng = np.random.default_rng(0)

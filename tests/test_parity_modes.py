@@ -91,7 +91,6 @@ def test_known_dynamics_transition():
         data=DataConfig(datatype="fhn", dx=2, dy=2, t_steps=12, n_train=16, n_test=8),
         smc=SMCConfig(objective="fivo", n_particles=16, transition="known"),
         train=TrainConfig(batch_size=8, n_steps=60, eval_every=30, lr=3e-3),
-        use_pallas=False,
     )
     ssm, params = init_ssm(cfg, jax.random.key(0))
     assert set(params["f"].keys()) == {"raw_scale"}  # no MLP — frozen dynamics
@@ -127,7 +126,6 @@ def test_known_dynamics_with_controls():
         ),
         smc=SMCConfig(objective="fivo", n_particles=16, transition="known"),
         train=TrainConfig(batch_size=16, n_steps=150, eval_every=75, lr=3e-3),
-        use_pallas=False,
     )
     ssm, params = init_ssm(cfg, jax.random.key(0))
     assert set(params["f"].keys()) == {"raw_scale", "ctrl_w"}
@@ -185,7 +183,6 @@ def test_dirac_emission_pipeline():
             emission="dirac",
         ),
         smc=SMCConfig(objective="fivo", n_particles=8),
-        use_pallas=False,
     )
     ds = generate_dataset(cfg.data, 0)
     # the data really is deterministic: y == x @ C exactly
@@ -220,7 +217,6 @@ def test_controls_enter_the_model():
         ),
         smc=SMCConfig(objective="fivo", n_particles=16),
         train=TrainConfig(batch_size=16, n_steps=150, eval_every=75, lr=3e-3),
-        use_pallas=False,
     )
     ds = generate_dataset(cfg.data, 0)
     assert ds.controls_train.shape == (48, 12, 2)
@@ -270,7 +266,6 @@ def test_epoch_mode_resume(tmp_path):
         data=DataConfig(datatype="fhn", dx=2, dy=2, t_steps=6, n_train=8, n_test=4),
         smc=SMCConfig(objective="fivo", n_particles=8),
         train=TrainConfig(batch_size=4, epochs=3, eval_every=2, save_every=2),
-        use_pallas=False,
     )
     ds = generate_dataset(cfg.data, 0)
     ssm, params = init_ssm(cfg, jax.random.key(0))
@@ -292,7 +287,6 @@ def test_epoch_accounting():
         data=DataConfig(datatype="fhn", dx=2, dy=2, t_steps=6, n_train=8, n_test=4),
         smc=SMCConfig(objective="fivo", n_particles=8),
         train=TrainConfig(batch_size=4, epochs=2, eval_every=2),
-        use_pallas=False,
     )
     ds = generate_dataset(cfg.data, 0)
     ssm, params = init_ssm(cfg, jax.random.key(0))
@@ -311,7 +305,6 @@ def test_tril_pairwise_matches_direct_density():
         name="pw",
         data=DataConfig(datatype="fhn", dx=3, dy=3, t_steps=4),
         smc=SMCConfig(objective="psvo", n_particles=16),
-        use_pallas=False,
     ).with_nets(f=NetConfig(cov_type="tril", hidden=(8,), sigma_init=0.7))
     ssm, params = init_ssm(cfg, jax.random.key(0))
     xs = jax.random.normal(jax.random.key(1), (2, 3, 16))  # [B, D, K]
@@ -373,7 +366,6 @@ def test_trilhead_matches_kalman_oracle():
             objective="fivo", n_particles=2048,
             resampling="systematic", use_bootstrap=True,
         ),
-        use_pallas=False,
     ).with_nets(q0=lin, q1=lin, q2=lin, f=th, g=th, qb=lin)
     from psvo_tpu.models.ssm import SSM
 
@@ -451,7 +443,6 @@ def test_trilhead_trains():
         data=DataConfig(datatype="fhn", dx=2, dy=2, t_steps=12, n_train=32, n_test=8),
         smc=SMCConfig(objective="fivo", n_particles=16),
         train=TrainConfig(batch_size=16, n_steps=60, eval_every=30, lr=3e-3),
-        use_pallas=False,
     ).with_nets(g=NetConfig(cov_type="tril_head", sigma_init=0.7))
     ssm, params = init_ssm(cfg, jax.random.key(0))
     ds = generate_dataset(cfg.data, 0)
@@ -472,7 +463,6 @@ def test_trilhead_pairwise_matches_direct_density():
         name="pwh",
         data=DataConfig(datatype="fhn", dx=3, dy=3, t_steps=4),
         smc=SMCConfig(objective="psvo", n_particles=16),
-        use_pallas=False,
     ).with_nets(f=NetConfig(cov_type="tril_head", hidden=(8,), sigma_init=0.7))
     ssm, params = init_ssm(cfg, jax.random.key(0))
     # strongly state-dependent factors
@@ -502,7 +492,6 @@ def test_trilhead_psvo_trains():
         data=DataConfig(datatype="fhn", dx=2, dy=2, t_steps=10, n_train=16, n_test=8),
         smc=SMCConfig(objective="psvo", n_particles=16, n_smoothing_particles=4),
         train=TrainConfig(batch_size=8, n_steps=30, eval_every=15, lr=3e-3),
-        use_pallas=False,
     ).with_nets(f=NetConfig(cov_type="tril_head", sigma_init=0.7))
     ssm, params = init_ssm(cfg, jax.random.key(0))
     ds = generate_dataset(cfg.data, 0)

@@ -31,7 +31,6 @@ def _cfg(d_data=2, d_part=4):
         smc=SMCConfig(objective="fivo", n_particles=32, resampling="systematic"),
         train=TrainConfig(batch_size=4),
         mesh=MeshConfig(data=d_data, particle=d_part),
-        use_pallas=False,
     )
 
 
@@ -106,14 +105,13 @@ def test_cli_sharded_end_to_end(tmp_path, capsys):
             "--set", "data.n_train=8", "--set", "data.n_test=4",
             "--set", "train.batch_size=4",
             "--set", "train.eval_every=3", "--set", "train.save_every=100",
-            "--set", "use_pallas=false",
             "--results-root", str(tmp_path),
         ]
     )
     context.set_mesh(None)
     assert rc == 0
     out = capsys.readouterr().out
-    assert "mesh: data=1 x particle=8" in out  # the mesh was actually built
+    assert "mesh: data=1 x particle=4" in out  # the mesh was actually built
     assert "test_elbo" in out  # sharded eval ran
     runs = list(tmp_path.iterdir())
     assert runs and (runs[0] / "history.json").exists()
@@ -195,42 +193,9 @@ def test_sharded_hlo_collectives():
         )
 
 
-def test_sharded_island_with_pallas_kernel(monkeypatch):
-    """The fused resample kernel runs per-shard inside the shard_map island
-    (interpret mode on the CPU mesh); results must match the jnp island."""
-    from psvo_tpu.ops import pallas_resample
-
-    monkeypatch.setattr(pallas_resample, "_INTERPRET", True)
-    cfg = _cfg()
-    # kernel gating: local batch 16/2=8 rows, local K 512/4=128 lanes
-    cfg = dataclasses.replace(
-        cfg,
-        smc=dataclasses.replace(cfg.smc, n_particles=512),
-        train=dataclasses.replace(cfg.train, batch_size=16),
-    )
-    ssm, params = init_ssm(cfg, jax.random.key(0))
-    ys = jax.random.normal(jax.random.key(1), (16, cfg.data.t_steps, cfg.data.dy))
-    mesh = sharding.make_mesh(cfg)
-    context.set_mesh(mesh)
-    ys_sh = jax.device_put(ys, sharding.batch_sharding(mesh))
-
-    run = lambda s: jax.jit(
-        lambda p, k, y: forward_filter(s, p, k, y, cfg.smc).log_z
-    )(params, jax.random.key(2), ys_sh)
-    ssm_pallas = type(ssm)(
-        dataclasses.replace(cfg, use_pallas=True, use_pallas_resample=True)
-    )
-    ssm_jnp = type(ssm)(dataclasses.replace(cfg, use_pallas=False))
-    got = np.asarray(run(ssm_pallas))
-    want = np.asarray(run(ssm_jnp))
-    context.set_mesh(None)
-    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
-
-
 def test_sharded_checkpoint_roundtrip(tmp_path):
     """Checkpoint written from a mesh run restores bit-equal into (a) a fresh
-    single-device run and (b) a new mesh run (VERDICT r2 missing #4 — the
-    sharded path's §5 checkpoint parity)."""
+    single-device run and (b) a new mesh run."""
     from psvo_tpu.train import TrainState, make_optimizer
     from psvo_tpu.utils.checkpoint import Checkpointer
 
@@ -298,8 +263,7 @@ def test_particle_mesh_segmented_ffbsi_matches_single_device():
     )(params, jax.random.key(2), ys)
 
     mesh = sharding.make_mesh(cfg)
-    ssm_sh, cfg_sh = sharding.prepare_sharded(ssm, cfg, mesh)
-    obj_sh = make_objective(ssm_sh, cfg_sh)
+    obj_sh = make_objective(ssm, cfg)
     context.set_mesh(mesh)
     ys_sh = jax.device_put(ys, sharding.batch_sharding(mesh))
     got_loss, got_grad = jax.jit(
@@ -344,65 +308,6 @@ def test_sharded_train_step_runs(objective, d_data, d_part):
     context.set_mesh(None)
 
 
-class _FakeDev:
-    """Stand-in device carrying a slice_index (no real multi-slice pod here)."""
-
-    def __init__(self, i, sl):
-        self.id, self.slice_index = i, sl
-
-    def __repr__(self):
-        return f"d{self.id}@s{self.slice_index}"
-
-
-def test_multislice_device_order():
-    """DCN layout guard (SURVEY.md §5: ICI *and* DCN): devices re-order
-    slice-major so every particle row of the (data, particle) grid sits
-    inside one slice — the per-timestep particle collectives never cross
-    DCN; only the outer data-axis component does."""
-    cfg = dataclasses.replace(_cfg(d_data=4, d_part=2), mesh=MeshConfig(data=4, particle=2, slices=2))
-    # interleaved arrival order (typical of jax.devices() across slices)
-    devs = [_FakeDev(0, 0), _FakeDev(1, 1), _FakeDev(2, 0), _FakeDev(3, 1),
-            _FakeDev(4, 0), _FakeDev(5, 1), _FakeDev(6, 0), _FakeDev(7, 1)]
-    ordered = sharding._slice_ordered(cfg, devs)
-    grid = np.asarray(ordered, dtype=object).reshape(4, 2)
-    for row in grid:  # particle rows intra-slice
-        assert len({d.slice_index for d in row}) == 1
-    # outer data component spans slices: first half slice 0, second slice 1
-    assert [d.slice_index for d in grid[:, 0]] == [0, 0, 1, 1]
-
-
-def test_multislice_config_guards():
-    base = _cfg(d_data=4, d_part=2)
-    # data axis must split evenly across slices
-    bad = dataclasses.replace(base, mesh=MeshConfig(data=3, particle=2, slices=2))
-    with pytest.raises(ValueError, match="divisible by mesh.slices"):
-        sharding._slice_ordered(bad, [_FakeDev(i, i % 2) for i in range(6)])
-    # declaring slices=1 while devices span two slices must refuse
-    with pytest.raises(ValueError, match="mesh.slices=1"):
-        sharding._slice_ordered(base, [_FakeDev(i, i % 2) for i in range(8)])
-    # slice count mismatch must refuse
-    bad2 = dataclasses.replace(base, mesh=MeshConfig(data=4, particle=2, slices=4))
-    with pytest.raises(ValueError, match="span 2 slice"):
-        sharding._slice_ordered(bad2, [_FakeDev(i, i % 2) for i in range(8)])
-
-
-def test_multislice_emulated_train_step():
-    """slices=2 on the virtual 8-CPU mesh (one `slice group' — emulation path):
-    the full sharded train step still compiles and runs."""
-    cfg = dataclasses.replace(_cfg(), mesh=MeshConfig(data=2, particle=4, slices=2))
-    ssm, params = init_ssm(cfg, jax.random.key(0))
-    from psvo_tpu.train import make_optimizer
-
-    optimizer = make_optimizer(cfg)
-    opt_state = optimizer.init(params)
-    mesh = sharding.make_mesh(cfg)
-    step = sharding.make_sharded_train_step(ssm, cfg, optimizer, mesh)
-    batch = jax.random.normal(jax.random.key(1), (4, cfg.data.t_steps, cfg.data.dy))
-    _, _, metrics = step(params, opt_state, jax.random.key(2), batch)
-    assert np.isfinite(float(metrics["loss"]))
-    context.set_mesh(None)
-
-
 def _smooth_cfg(objective, d_data=2, d_part=4, m=4):
     cfg = _cfg(d_data, d_part)
     return dataclasses.replace(
@@ -436,8 +341,7 @@ def test_sharded_smoothing_matches_single_device(objective):
     ref_loss = float(ref_loss)
 
     mesh = sharding.make_mesh(cfg)
-    ssm_sh, cfg_sh = sharding.prepare_sharded(ssm, cfg, mesh)
-    obj_sh = make_objective(ssm_sh, cfg_sh)
+    obj_sh = make_objective(ssm, cfg)
     context.set_mesh(mesh)
     ys_sh = jax.device_put(ys, sharding.batch_sharding(mesh))
     got_loss, got_grad = jax.jit(
@@ -458,7 +362,7 @@ def test_sharded_smoothing_matches_single_device(objective):
 def test_sharded_psvo_hlo_no_full_allgather():
     """The compiled particle-sharded PSVO program (forward + FFBSi backward)
     must not all-gather any tensor carrying the full particle axis — the
-    GSPMD default the sharded_ffbsi island replaces (ADVICE r2 low #4)."""
+    GSPMD default the sharded_ffbsi island replaces."""
     import re
 
     from psvo_tpu.objectives import make_objective
@@ -467,8 +371,7 @@ def test_sharded_psvo_hlo_no_full_allgather():
     k = cfg.smc.n_particles
     ssm, params = init_ssm(cfg, jax.random.key(0))
     mesh = sharding.make_mesh(cfg)
-    ssm_sh, cfg_sh = sharding.prepare_sharded(ssm, cfg, mesh)
-    obj = make_objective(ssm_sh, cfg_sh)
+    obj = make_objective(ssm, cfg)
     context.set_mesh(mesh)
     ys = jax.device_put(
         jax.random.normal(jax.random.key(1), (4, cfg.data.t_steps, cfg.data.dy)),
@@ -518,3 +421,17 @@ def test_sharded_smoothing_train_step():
     )
     assert delta > 0
     context.set_mesh(None)
+
+
+def test_maybe_mesh_raises_on_too_few_devices():
+    """A sharded preset runs sharded or not at all: a mesh larger than the
+    device count raises instead of silently running unsharded."""
+    cfg = _cfg(d_data=4, d_part=4)  # 16 > 8 devices
+    with pytest.raises(ValueError, match="needs 16 devices"):
+        sharding.maybe_mesh(cfg)
+
+
+def test_maybe_mesh_single_device_and_full_mesh():
+    assert sharding.maybe_mesh(_cfg(d_data=1, d_part=1)) is None
+    mesh = sharding.maybe_mesh(_cfg(d_data=1, d_part=4))
+    assert dict(mesh.shape) == {context.DATA_AXIS: 1, context.PARTICLE_AXIS: 4}

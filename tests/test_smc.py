@@ -23,7 +23,6 @@ def _tiny_cfg(objective="fivo", resampling="systematic", k=8, t=6):
             n_smoothing_particles=4,
             resampling=resampling,
         ),
-        use_pallas=False,
     )
 
 
@@ -197,7 +196,7 @@ def test_fivo_full_gradient_matches_enumeration():
 
 def test_grad_reverse_matches_forward_mode():
     """vjp-vs-jvp consistency on every objective — the safety net that will
-    catch custom-VJP bugs when the Pallas kernels land (SURVEY.md §7 M4)."""
+    catch a wrong custom VJP or gradient rule (SURVEY.md §7 M4)."""
     for objective in ("iwae", "fivo", "svo", "psvo"):
         cfg, ssm, params, ys = _setup(objective=objective)
         obj = make_objective(ssm, cfg)

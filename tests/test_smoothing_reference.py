@@ -28,7 +28,7 @@ from tests.reference_numpy.numpy_smoothing import (
 K, M, T, B, REPS = 128, 8, 12, 4, 12
 
 
-def _setup(datatype, objective, **data_kw):
+def _setup(datatype, objective, m=M, psvo_bound="forward", **data_kw):
     dx = 2 if datatype == "fhn" else 3
     net = NetConfig(hidden=(16, 16))
     cfg = Config(
@@ -40,10 +40,10 @@ def _setup(datatype, objective, **data_kw):
         smc=SMCConfig(
             objective=objective,
             n_particles=K,
-            n_smoothing_particles=M,
+            n_smoothing_particles=m,
             resampling="systematic",
+            psvo_bound=psvo_bound,
         ),
-        use_pallas=False,
     ).with_nets(
         q0=net, q1=net, q2=net, f=net,
         g=dataclasses.replace(net, sigma_init=0.5), qb=net,
@@ -141,9 +141,9 @@ def test_psvo_direct_bound_trainable():
 
 @pytest.mark.fast
 def test_logjoint_chunked_matches_direct(monkeypatch):
-    """The long-T chunked selected-path log-joint (round-5: bounds the
-    42.7×-lane-padded [*, B, M, Dx] intermediates to one chunk) must be
-    value- AND gradient-identical to the direct form, controls included."""
+    """The long-T chunked selected-path log-joint (bounds the [*, B, M, ·]
+    intermediates to one chunk) must be value- AND gradient-identical to
+    the direct form, controls included."""
     import psvo_tpu.objectives as objectives_mod
     from psvo_tpu.config import Config, DataConfig, NetConfig, SMCConfig
     from psvo_tpu.models.ssm import init_ssm
@@ -178,3 +178,53 @@ def test_logjoint_chunked_matches_direct(monkeypatch):
         np.testing.assert_allclose(
             np.asarray(a), np.asarray(b), rtol=1e-5, atol=1e-6
         )
+
+
+@pytest.mark.parametrize("m", [16, 64])
+@pytest.mark.parametrize("datatype,kw", [("fhn", {}), ("lorenz63", {"obs_scale": 0.5})])
+def test_svo_bound_matches_numpy_at_m(datatype, kw, m):
+    """SVO's backward sweep at the preset's M=16 and the M=64 bench row."""
+    cfg, ssm, params, ys = _setup(datatype, "svo", m=m, **kw)
+    obj = jax.jit(
+        lambda key: jnp.mean(make_objective(ssm, cfg)(params, key, ys).elbo)
+    )
+    jax_vals = np.array([float(obj(jax.random.key(600 + r))) for r in range(REPS)])
+    model = NumpySSMParams.from_jax(params, ssm)
+    np_vals = np.array(
+        [
+            float(np.mean(numpy_svo_elbo(model, np.asarray(ys), K, m, seed=700 + 3 * r)))
+            for r in range(REPS)
+        ]
+    )
+    _bands(jax_vals, np_vals)
+
+
+@pytest.mark.parametrize("m", [16, 64])
+@pytest.mark.parametrize("bound", ["forward", "direct"])
+def test_ffbsi_bound_forms_match_numpy(bound, m):
+    """FFBSi under both PSVO training bounds (the direct one keeps the sweep
+    differentiable) reports the same three quantities as the NumPy FFBSi."""
+    cfg, ssm, params, ys = _setup("fhn", "psvo", m=m, psvo_bound=bound)
+    objective = make_objective(ssm, cfg)
+
+    @jax.jit
+    def run(key):
+        out = objective(params, key, ys)
+        return (
+            jnp.mean(out.elbo),
+            out.metrics["log_joint_smoothed"],
+            out.metrics["elbo_psvo_direct"],
+        )
+
+    jax_vals = np.array(
+        [[float(v) for v in run(jax.random.key(800 + r))] for r in range(REPS)]
+    )
+    model = NumpySSMParams.from_jax(params, ssm)
+    np_vals = np.array(
+        [
+            [np.mean(v) for v in numpy_psvo_terms(model, np.asarray(ys), K, m, seed=900 + 3 * r)]
+            for r in range(REPS)
+        ]
+    )
+    for c in range(3):
+        _bands(jax_vals[:, c], np_vals[:, c])
